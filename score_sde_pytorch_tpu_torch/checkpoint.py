@@ -1,0 +1,110 @@
+"""Checkpoints in the torch reference's ``.pth`` schema.
+
+A checkpoint is ``{"model", "ema", "optimizer", "step"}`` as the reference
+(yang-song/score_sde_pytorch utils.py) saves it and as
+``score_sde_pytorch_tpu.interop.export_torch_checkpoint`` writes it:
+
+- ``model``: the state_dict with the ``module.`` prefix of the reference's
+  DataParallel wrapper;
+- ``ema``: ``{"decay", "num_updates", "shadow_params"}``, the shadow list in
+  ``model.parameters()`` order restricted to trainable parameters (the
+  Fourier projection ``W`` is not one);
+- ``optimizer``: an Adam state_dict over ``model.parameters()``;
+- ``step``.
+
+Numbered snapshots live at ``workdir/checkpoints/checkpoint_<N>.pth``; the
+rolling one at ``workdir/checkpoints-meta/checkpoint.pth``.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional, Sequence
+
+import torch
+
+_PREFIX = "module."
+_NUMBERED = re.compile(r"^checkpoint_(\d+)\.pth$")
+
+
+def numbered_path(workdir: str, step: int) -> str:
+  return os.path.join(workdir, "checkpoints", f"checkpoint_{step}.pth")
+
+
+def meta_path(workdir: str) -> str:
+  return os.path.join(workdir, "checkpoints-meta", "checkpoint.pth")
+
+
+def latest_numbered(workdir: str) -> Optional[int]:
+  """Largest N of ``checkpoints/checkpoint_N.pth``, or None."""
+  ckpt_dir = os.path.join(workdir, "checkpoints")
+  if not os.path.isdir(ckpt_dir):
+    return None
+  found = [int(m.group(1)) for m in map(_NUMBERED.match, os.listdir(ckpt_dir))
+           if m]
+  return max(found) if found else None
+
+
+def _trainable(model: torch.nn.Module):
+  return [p for p in model.parameters() if p.requires_grad]
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, config, *,
+                    step: int = 0,
+                    ema_params: Optional[Sequence[torch.Tensor]] = None
+                    ) -> None:
+  """Write ``model`` (and EMA shadow params, by default the model's own
+  trainable params) as a reference-schema ``.pth``. The EMA decay is
+  ``config.model.ema_rate``; the optimizer entry is a fresh Adam state over
+  ``model.parameters()`` with ``config.optim``'s hyperparameters, as
+  ``score_sde_pytorch_tpu.interop.export_torch_checkpoint`` writes it."""
+  shadow = list(ema_params) if ema_params is not None else _trainable(model)
+  if len(shadow) != len(_trainable(model)):
+    raise ValueError(f"{len(shadow)} EMA params for "
+                     f"{len(_trainable(model))} trainable params")
+  params = [torch.nn.Parameter(p.detach().cpu().clone())
+            for p in model.parameters()]
+  optim = config.optim
+  optimizer = torch.optim.Adam(params, lr=optim.lr, betas=(optim.beta1, 0.999),
+                               eps=optim.eps, weight_decay=optim.weight_decay)
+  ckpt = {
+      "model": {_PREFIX + k: v.detach().cpu()
+                for k, v in model.state_dict().items()},
+      "ema": {"decay": float(config.model.ema_rate), "num_updates": int(step),
+              "shadow_params": [p.detach().cpu().clone() for p in shadow]},
+      "optimizer": optimizer.state_dict(),
+      "step": int(step),
+  }
+  os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+  torch.save(ckpt, path)
+
+
+def restore_ema(path: str, model: torch.nn.Module) -> int:
+  """Load ``path`` into ``model``, then copy the EMA shadow params into its
+  trainable params in order (what sampling uses). Returns the step.
+
+  The ``sigmas`` buffer is derived from ``config.model`` and keeps the
+  model's own value (sampling may use fewer scales than training did);
+  every other entry must match the model exactly."""
+  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  state = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
+           for k, v in ckpt["model"].items()}
+  state.pop("sigmas", None)
+  missing, unexpected = model.load_state_dict(state, strict=False)
+  if unexpected or set(missing) - {"sigmas"}:
+    raise KeyError(f"{path} does not fit the model: missing "
+                   f"{sorted(set(missing) - {'sigmas'})[:8]}, unexpected "
+                   f"{sorted(unexpected)[:8]}")
+  trainable = _trainable(model)
+  shadow = ckpt["ema"]["shadow_params"]
+  if len(shadow) != len(trainable):
+    raise ValueError(f"{path}: {len(shadow)} EMA shadow params for "
+                     f"{len(trainable)} trainable params")
+  with torch.no_grad():
+    for param, value in zip(trainable, shadow):
+      if param.shape != value.shape:
+        raise ValueError(f"{path}: EMA shadow param of shape "
+                         f"{tuple(value.shape)} for a parameter of shape "
+                         f"{tuple(param.shape)}")
+      param.copy_(value)
+  return int(ckpt["step"])

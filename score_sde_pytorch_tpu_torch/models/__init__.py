@@ -1,0 +1,2 @@
+"""Score networks of the port. Importing the package registers them."""
+from score_sde_pytorch_tpu_torch.models import ncsnpp  # noqa: F401
