@@ -12,6 +12,9 @@ A checkpoint is ``{"model", "ema", "optimizer", "step"}`` as the reference
 - ``optimizer``: an Adam state_dict over ``model.parameters()``;
 - ``step``.
 
+The train loop (:func:`save_train_state`) also writes ``rng``: the states
+of the generators a train step draws from, which reference loaders ignore.
+
 Numbered snapshots live at ``workdir/checkpoints/checkpoint_<N>.pth``; the
 rolling one at ``workdir/checkpoints-meta/checkpoint.pth``.
 """
@@ -75,18 +78,22 @@ def save_checkpoint(path: str, model: torch.nn.Module, config, *,
       "optimizer": optimizer.state_dict(),
       "step": int(step),
   }
+  _write(ckpt, path)
+
+
+def _write(ckpt: dict, path: str) -> None:
+  """``torch.save`` to a temporary name, then rename into place, so a run
+  stopped while writing leaves the previous file whole."""
   os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-  torch.save(ckpt, path)
+  tmp = path + ".tmp"
+  torch.save(ckpt, tmp)
+  os.replace(tmp, path)
 
 
-def restore_ema(path: str, model: torch.nn.Module) -> int:
-  """Load ``path`` into ``model``, then copy the EMA shadow params into its
-  trainable params in order (what sampling uses). Returns the step.
-
-  The ``sigmas`` buffer is derived from ``config.model`` and keeps the
-  model's own value (sampling may use fewer scales than training did);
-  every other entry must match the model exactly."""
-  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+def _load_model_state(ckpt: dict, model: torch.nn.Module, path: str) -> None:
+  """Load the checkpoint's ``model`` entry. The ``sigmas`` buffer is derived
+  from ``config.model`` and keeps the model's own value (sampling may use
+  fewer scales than training did); every other entry must match exactly."""
   state = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
            for k, v in ckpt["model"].items()}
   state.pop("sigmas", None)
@@ -95,6 +102,64 @@ def restore_ema(path: str, model: torch.nn.Module) -> int:
     raise KeyError(f"{path} does not fit the model: missing "
                    f"{sorted(set(missing) - {'sigmas'})[:8]}, unexpected "
                    f"{sorted(unexpected)[:8]}")
+
+
+def _rng_states(generator: torch.Generator, device: torch.device) -> dict:
+  states = {"generator": generator.get_state(),
+            "torch_cpu": torch.get_rng_state()}
+  if device.type == "cuda":
+    states["torch_cuda"] = torch.cuda.get_rng_state(device)
+  return states
+
+
+def save_train_state(path: str, state: dict) -> None:
+  """Write a train state (``losses.init_train_state``) in the reference
+  schema: the model, its EMA and optimizer states and the step, plus under
+  ``rng`` the step's generator and PyTorch's default generators (dropout's)
+  of the CPU and, when the model is on one, the CUDA device."""
+  model = state["model"]
+  device = next(model.parameters()).device
+  _write({
+      "model": {_PREFIX + k: v.detach().cpu()
+                for k, v in model.state_dict().items()},
+      "ema": state["ema"].state_dict(),
+      "optimizer": state["optimizer"].state_dict(),
+      "step": int(state["step"]),
+      "rng": _rng_states(state["generator"], device),
+  }, path)
+
+
+def restore_train_state(path: str, state: dict) -> int:
+  """Load a checkpoint that :func:`save_train_state` wrote into ``state``
+  (in place) and set the generators to its ``rng`` states, so a resumed
+  run draws what an uninterrupted one would. Returns the step."""
+  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  if "rng" not in ckpt:
+    raise KeyError(f"{path} has no generator states (key 'rng'): it was "
+                   "not written by the train loop, so the run cannot resume "
+                   "from it exactly")
+  model = state["model"]
+  device = next(model.parameters()).device
+  _load_model_state(ckpt, model, path)
+  state["optimizer"].load_state_dict(ckpt["optimizer"])
+  state["ema"].load_state_dict(ckpt["ema"])
+  state["step"] = int(ckpt["step"])
+  rng = ckpt["rng"]
+  state["generator"].set_state(rng["generator"])
+  torch.set_rng_state(rng["torch_cpu"])
+  if device.type == "cuda":
+    torch.cuda.set_rng_state(rng["torch_cuda"], device)
+  return state["step"]
+
+
+def restore_ema(path: str, model: torch.nn.Module) -> int:
+  """Load ``path`` into ``model``, then copy the EMA shadow params into its
+  trainable params in order (what sampling uses). Returns the step.
+
+  The ``sigmas`` buffer keeps the model's own value (see
+  :func:`_load_model_state`)."""
+  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  _load_model_state(ckpt, model, path)
   trainable = _trainable(model)
   shadow = ckpt["ema"]["shadow_params"]
   if len(shadow) != len(trainable):

@@ -7,7 +7,7 @@ attribute dictionary (:class:`ConfigDict`) is bound in as ``ml_collections``
 while the files load, and removed again afterwards.
 
 Keys with no PyTorch meaning: ``training.prng_impl`` and
-``model.spatial_sharding`` are ignored. ``model.remat=True`` (training) and
+``model.spatial_sharding`` are ignored. ``model.remat=True`` and
 ``model.dtype`` other than float32 raise.
 """
 from __future__ import annotations
@@ -113,8 +113,9 @@ def apply_overrides(config, overrides: Iterable[str]) -> None:
 def check_supported(config) -> None:
   """Raise on settings the port cannot honour yet."""
   if config.model.get("remat", False):
-    raise NotImplementedError("model.remat is a training option; training is "
-                              "not ported yet (ROADMAP.md queue 1 item 4)")
+    raise NotImplementedError("model.remat (activation recomputation in "
+                              "training) is not ported yet; see ROADMAP.md "
+                              "queue 1 item 1")
   dtype = config.model.get("dtype", "float32")
   if dtype != "float32":
     raise NotImplementedError(f"model.dtype={dtype!r} is not ported yet; the "

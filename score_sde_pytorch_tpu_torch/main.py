@@ -2,14 +2,14 @@
 
     python -m score_sde_pytorch_tpu_torch.main \\
         --config score_sde_pytorch_tpu/configs/ve/cifar10_ncsnpp_continuous.py \\
-        --workdir RUN_DIR --mode sample [--num_samples N] [--checkpoint N] \\
-        [--device cuda|cpu] [--config.section.key=value ...]
+        --workdir RUN_DIR --mode train|sample [--num_samples N] \\
+        [--checkpoint N] [--device cuda|cpu] [--config.section.key=value ...]
 
 The flags are those of the JAX package's ``main.py``. They are parsed with
 argparse: the JAX CLI's ``ml_collections.config_flags`` is not installed on
-every machine the port runs on. ``--mode sample`` is the ported pipeline;
-``train`` and ``eval`` raise. The device is ``cuda`` unless ``--device cpu``
-is given; there is no silent CPU fallback.
+every machine the port runs on. ``--mode train`` and ``--mode sample`` are
+the ported pipelines; ``eval`` raises. The device is ``cuda`` unless
+``--device cpu`` is given; there is no silent CPU fallback.
 """
 from __future__ import annotations
 
@@ -50,12 +50,12 @@ def parse_args(argv: Sequence[str]):
 
 def main(argv: Optional[Sequence[str]] = None):
   """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns what the
-  mode's pipeline returns (for ``sample``, the per-round records)."""
+  mode's pipeline returns (for ``train``, the logged losses; for
+  ``sample``, the per-round records)."""
   args, overrides = parse_args(sys.argv[1:] if argv is None else list(argv))
-  if args.mode in ("train", "eval"):
+  if args.mode == "eval":
     raise NotImplementedError(
-        f"--mode {args.mode} is not ported yet; see ROADMAP.md queue 1 items "
-        "4, 7 and 12")
+        "--mode eval is not ported yet; see ROADMAP.md queue 1 item 12")
   if args.device == "cuda" and not torch.cuda.is_available():
     raise RuntimeError("--device cuda, but torch sees no CUDA device; pass "
                        "--device cpu to run on the CPU")
@@ -75,6 +75,8 @@ def main(argv: Optional[Sequence[str]] = None):
     logger.addHandler(handler)
   logger.setLevel(logging.INFO)
   try:
+    if args.mode == "train":
+      return run_lib.train(config, args.workdir, device=args.device)
     return run_lib.sample(config, args.workdir, args.sample_folder,
                           checkpoint=args.checkpoint,
                           num_samples=args.num_samples, device=args.device)

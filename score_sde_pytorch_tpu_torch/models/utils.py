@@ -55,12 +55,11 @@ def create_model(config, device, generator: torch.Generator) -> torch.nn.Module:
 
 
 def get_model_fn(model: torch.nn.Module, train: bool = False) -> Callable:
-  """Raw-output model function ``model_fn(x, labels)`` (reference
-  models/utils.py:97-126)."""
-  if train:
-    raise NotImplementedError("training is not ported yet; see ROADMAP.md "
-                              "queue 1 item 4")
-  model.eval()
+  """Raw-output model function ``model_fn(x, labels)`` (JAX
+  models/utils.py:88-107). ``train=True`` puts the model in train mode, so
+  dropout is on and draws from PyTorch's default generator of the model's
+  device; ``train=False`` puts it in eval mode."""
+  model.train(train)
 
   def model_fn(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return model(x, labels)

@@ -12,8 +12,14 @@ with N = H·W and C the channel width, as in the JAX kernel.
   call raises. It never falls back from one to the other, and unlike the JAX
   package's ``attention_auto`` it has no size threshold: every attention call
   on the card runs the kernel.
-- ``flash_attention_launches`` counts kernel launches, so a run can show
-  that its attention went through the kernel.
+- On the card the gradient goes through the hand-written backward in the
+  same source (three launches per call: D = rowsum(dO∘O), then dK/dV, then
+  dQ); :func:`dense_attention_backward` is its plain version, mirroring the
+  JAX package's ``_flash_bwd_impl``. On the CPU the gradient is autograd
+  through :func:`dense_attention`.
+- ``flash_attention_launches`` counts forward kernel launches and
+  ``flash_attention_backward_launches`` backward calls, so a run can show
+  that its attention went through the kernels.
 """
 from __future__ import annotations
 
@@ -24,9 +30,11 @@ import torch
 
 from score_sde_pytorch_tpu_torch.ops import build
 
-# Kernel launches in this process; `_launch_flash_attention` adds one per
-# launch and nothing else in the package touches it.
+# Kernel launches in this process: `_launch_flash_attention` adds one per
+# forward launch, `_launch_flash_attention_backward` one per backward call
+# (its three kernels), and nothing else in the package touches them.
 flash_attention_launches = 0
+flash_attention_backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 256
@@ -39,6 +47,27 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor,
   logits = torch.einsum("bnc,bmc->bnm", q, k) * (c ** -0.5)
   attn = torch.softmax(logits.float(), dim=-1)
   return torch.einsum("bnm,bmc->bnc", attn.to(v.dtype), v)
+
+
+def dense_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor):
+  """Plain version of the backward kernel, with materialized [B, N, N]
+  probabilities. Mirrors JAX ``_flash_bwd_impl`` (attention.py:129-161):
+  every input widened to fp32, ``D = rowsum(dO∘O)``, ``dS = P∘(dP − D)``,
+  ``dq = scale·dS·k``, ``dk = scale·dSᵀ·q``, ``dv = Pᵀ·dO``; the gradients
+  are returned in the inputs' dtype."""
+  c = q.shape[-1]
+  scale = c ** -0.5
+  wide = torch.promote_types(q.dtype, torch.float32)
+  qf, kf, vf, of, dof = (t.to(wide) for t in (q, k, v, out, dout))
+  p = torch.softmax(torch.einsum("bnc,bmc->bnm", qf, kf) * scale, dim=-1)
+  d_row = (dof * of).sum(-1, keepdim=True)
+  ds = p * (torch.einsum("bnc,bmc->bnm", dof, vf) - d_row)
+  dq = scale * torch.einsum("bnm,bmc->bnc", ds, kf)
+  dk = scale * torch.einsum("bnm,bnc->bmc", ds, qf)
+  dv = torch.einsum("bnm,bnc->bmc", p, dof)
+  return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -66,48 +95,91 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def kernel_library() -> build.Library:
   """Build (first call only) and bind csrc/flash_attention.cu."""
   lib = build.load("flash_attention")
-  fn = lib.handle.flash_attention_forward
-  fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-  fn.restype = ctypes.c_int
+  ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  fwd = lib.handle.flash_attention_forward
+  fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr]
+  fwd.restype = ctypes.c_int
+  bwd = lib.handle.flash_attention_backward
+  bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, i32, ptr]
+  bwd.restype = ctypes.c_int
   return lib
 
 
+def _check_aligned(*tensors: torch.Tensor) -> None:
+  for t in tensors:
+    if t.data_ptr() % 16:
+      raise ValueError("the attention kernels read 16-byte aligned rows; got "
+                       "a tensor whose storage offset breaks that")
+
+
+def _raise_on(err: int, what: str, shape, dtype) -> None:
+  if err != 0:
+    raise RuntimeError(f"{what} kernel launch failed with CUDA error {err} at "
+                       f"[B, N, C] = {list(shape)}, {dtype}")
+
+
 def _launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor) -> torch.Tensor:
+                            v: torch.Tensor, with_lse: bool = False):
+  """Forward kernel; returns ``(out, lse)``, with ``lse`` the fp32 [B, N]
+  row log-sum-exp when ``with_lse`` (the backward needs it), else None."""
   global flash_attention_launches
   fn = kernel_library().handle.flash_attention_forward
   b, n, c = q.shape
   out = torch.empty_like(q)
-  for t in (q, k, v, out):
-    if t.data_ptr() % 16:
-      raise ValueError("the attention kernel reads 16-byte aligned rows; got "
-                       "a tensor whose storage offset breaks that")
+  lse = (torch.empty((b, n), dtype=torch.float32, device=q.device)
+         if with_lse else None)
+  _check_aligned(q, k, v, out)
   with torch.cuda.device(q.device):
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
-             c, c ** -0.5, _DTYPE_CODES[q.dtype], stream)
-  if err != 0:
-    raise RuntimeError(f"flash_attention kernel launch failed with CUDA error "
-                       f"{err} at [B, N, C] = {[b, n, c]}, {q.dtype}")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None, b, n, c, c ** -0.5,
+             _DTYPE_CODES[q.dtype], stream)
+  _raise_on(err, "flash_attention", q.shape, q.dtype)
   flash_attention_launches += 1
-  return out
+  return out, lse
+
+
+def _launch_flash_attention_backward(q, k, v, out, lse, dout):
+  """Backward kernels; returns ``(dq, dk, dv)`` in the inputs' dtype."""
+  global flash_attention_backward_launches
+  fn = kernel_library().handle.flash_attention_backward
+  b, n, c = q.shape
+  if dout.dtype != q.dtype or dout.shape != q.shape:
+    raise ValueError(f"attention backward wants a gradient of the output's "
+                     f"shape and dtype {list(q.shape)} {q.dtype}, got "
+                     f"{list(dout.shape)} {dout.dtype}")
+  dout = dout.contiguous()  # AttnBlockpp hands a permuted gradient
+  delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
+  dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+  _check_aligned(q, k, v, out, dout, dq, dk, dv)
+  with torch.cuda.device(q.device):
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, n, c, c ** -0.5,
+             _DTYPE_CODES[q.dtype], stream)
+  _raise_on(err, "flash_attention backward", q.shape, q.dtype)
+  flash_attention_backward_launches += 1
+  return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-  """The kernel as an autograd node. Sampling needs only the forward."""
+  """The kernels as an autograd node. The forward saves what the backward
+  needs (q, k, v, the output and the row log-sum-exp) only when a gradient
+  is wanted, so sampling keeps its one launch and no extra store."""
 
   @staticmethod
   def forward(ctx, q, k, v):
-    return _launch_flash_attention(q, k, v)
+    with_grad = any(ctx.needs_input_grad)
+    out, lse = _launch_flash_attention(q, k, v, with_lse=with_grad)
+    if with_grad:
+      ctx.save_for_backward(q, k, v, out, lse)
+    return out
 
   @staticmethod
   def backward(ctx, grad_out):
-    raise NotImplementedError(
-        "the flash-attention backward kernel belongs to the training slice "
-        "(ROADMAP.md, queue 2 item 1, and queue 1 item 4); this port only "
-        "samples so far")
+    q, k, v, out, lse = ctx.saved_tensors
+    return _launch_flash_attention_backward(q, k, v, out, lse, grad_out)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor,

@@ -1,8 +1,8 @@
-"""Pipelines of the port: standalone sampling from a checkpoint.
+"""Pipelines of the port: training, and sampling from a checkpoint.
 
-Counterpart of score_sde_pytorch_tpu/run_lib.py:467-588 (``sample``).
-Training and evaluation are not ported yet (ROADMAP.md queue 1 items 4, 7
-and 12).
+Counterpart of score_sde_pytorch_tpu/run_lib.py:66-248 (``train``) and
+:467-588 (``sample``). Evaluation is not ported yet (ROADMAP.md queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -13,18 +13,34 @@ import time
 import numpy as np
 import torch
 
+from score_sde_pytorch_tpu import datasets
 from score_sde_pytorch_tpu.utils.image import make_grid, save_image
 from score_sde_pytorch_tpu_torch import checkpoint as ckpt_lib
-from score_sde_pytorch_tpu_torch import sampling
+from score_sde_pytorch_tpu_torch import losses, sampling
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 
+try:
+  from tensorboardX import SummaryWriter
+except ImportError:
+  SummaryWriter = None
 
-def get_data_inverse_scaler(config):
-  """Inverse of the data scaler (reference datasets.py:33-38)."""
-  if config.data.centered:
-    return lambda x: (x + 1.0) / 2.0
-  return lambda x: x
+
+class _NullWriter:
+  """Stands in for TensorBoard's writer where tensorboardX is missing (as
+  the JAX package's run_lib does); training itself is unchanged."""
+
+  def add_scalar(self, *args, **kwargs):
+    pass
+
+  def flush(self):
+    pass
+
+
+def _writer(workdir: str):
+  if SummaryWriter is None:
+    return _NullWriter()
+  return SummaryWriter(os.path.join(workdir, "tensorboard"))
 
 
 def _resolve_checkpoint(workdir: str, checkpoint: int):
@@ -70,7 +86,7 @@ def sample(config, workdir: str, sample_folder: str = "generated",
   shape = (batch, config.data.image_size, config.data.image_size,
            config.data.num_channels)
   sampling_fn = sampling.get_sampling_fn(
-      config, sde, model, shape, get_data_inverse_scaler(config),
+      config, sde, model, shape, datasets.get_data_inverse_scaler(config),
       device=device)
 
   generator = torch.Generator(device=device).manual_seed(config.seed + 2)
@@ -97,3 +113,140 @@ def sample(config, workdir: str, sample_folder: str = "generated",
     rounds.append({"samples": int(samples_np.shape[0]), "nfe": int(nfe),
                    "seconds": seconds})
   return rounds
+
+
+def _seeded_generator(device: torch.device, seed: int, step: int,
+                      stream: int) -> torch.Generator:
+  """A generator that depends only on (seed, step, stream): the eval loss
+  and the snapshot samples of a step are the same in a resumed run."""
+  key = np.random.SeedSequence([seed, step, stream]).generate_state(
+      1, np.uint64)[0]
+  return torch.Generator(device=device).manual_seed(int(key >> np.uint64(1)))
+
+
+def _evals_before(step: int, n_jitted: int, eval_freq: int) -> int:
+  """Eval calls the loop has made when it reaches ``step``."""
+  return sum(1 for s in range(n_jitted, step + 1, n_jitted)
+             if s % eval_freq < n_jitted)
+
+
+def train(config, workdir: str, device: str = "cuda") -> dict:
+  """Train loop (JAX run_lib.py:66-248).
+
+  Resumes from ``checkpoints-meta/checkpoint.pth`` when it exists. Each
+  call of the n-step function runs ``training.n_jitted_steps`` eager steps;
+  logs, the rolling snapshot, the eval loss and the numbered snapshots
+  (with a sample grid from the EMA weights) land on the JAX package's
+  steps (``step % freq < n_jitted_steps``). The host syncs with the device
+  only where a loss is logged.
+
+  A resumed run repeats an uninterrupted one: the checkpoint carries the
+  generators' states, the data streams are replayed to where the run
+  stopped (numpy batches, ``data.loader_backend='python'``, in one fixed
+  order), and the eval and sampling draws depend only on the step.
+
+  Returns ``{"initial_step", "step", "train_losses", "eval_losses"}``, the
+  losses as ``(step, value)`` pairs of the logged values."""
+  device = torch.device(device)
+  os.makedirs(workdir, exist_ok=True)
+  writer = _writer(workdir)
+  sample_dir = os.path.join(workdir, "samples")
+  os.makedirs(sample_dir, exist_ok=True)
+
+  torch.manual_seed(config.seed)  # dropout's default generators
+  model = mutils.create_model(config, device,
+                              torch.Generator().manual_seed(config.seed))
+  state = losses.init_train_state(config, model, device)
+  meta = ckpt_lib.meta_path(workdir)
+  if os.path.isfile(meta):
+    ckpt_lib.restore_train_state(meta, state)
+  initial_step = state["step"]
+
+  # The native loader's worker threads may reorder batches, so the port
+  # reads the numpy pipeline, whose order a resumed run can replay.
+  config.data.loader_backend = "python"
+  train_iter, eval_iter = datasets.get_dataset(config, process_index=0,
+                                               process_count=1)
+  scaler = datasets.get_data_scaler(config)
+  n_jitted = config.training.get("n_jitted_steps", 1)
+  tcfg = config.training
+  for _ in range(initial_step):
+    next(train_iter)
+  for _ in range(n_jitted * _evals_before(initial_step, n_jitted,
+                                          tcfg.eval_freq)):
+    next(eval_iter)
+
+  sde = sde_lib.build_sde(config)
+  step_kwargs = dict(reduce_mean=tcfg.reduce_mean, continuous=tcfg.continuous,
+                     likelihood_weighting=tcfg.likelihood_weighting)
+  train_step = losses.get_n_step_fn(
+      losses.get_step_fn(sde, train=True,
+                         optimize_fn=losses.optimization_manager(config),
+                         **step_kwargs), n_jitted)
+  eval_step = losses.get_n_step_fn(
+      losses.get_step_fn(sde, train=False, **step_kwargs), n_jitted)
+
+  def next_batches(it):
+    return [torch.from_numpy(scaler(next(it))).to(device).permute(
+        0, 3, 1, 2).contiguous() for _ in range(n_jitted)]
+
+  if tcfg.snapshot_sampling:
+    sampling_shape = (tcfg.batch_size, config.data.image_size,
+                      config.data.image_size, config.data.num_channels)
+    sampling_fn = sampling.get_sampling_fn(
+        config, sde, model, sampling_shape,
+        datasets.get_data_inverse_scaler(config), device=device)
+
+  logging.info("Starting training loop at step %d.", initial_step)
+  step = initial_step
+  t_last = time.time()
+  train_losses, eval_losses = [], []
+  while step < tcfg.n_iters:
+    loss = train_step(state, next_batches(train_iter), state["generator"])
+    step += n_jitted
+
+    if step % tcfg.log_freq < n_jitted:
+      loss_val = float(loss.mean())
+      dt = time.time() - t_last
+      t_last = time.time()
+      logging.info("step: %d, training_loss: %.5e (%.3f s/step)", step,
+                   loss_val, dt / max(tcfg.log_freq, 1))
+      writer.add_scalar("training_loss", loss_val, step)
+      train_losses.append((step, loss_val))
+
+    if step != 0 and step % tcfg.snapshot_freq_for_preemption < n_jitted:
+      ckpt_lib.save_train_state(meta, state)
+
+    if step % tcfg.eval_freq < n_jitted:
+      eval_loss = eval_step(state, next_batches(eval_iter),
+                            _seeded_generator(device, config.seed, step, 0))
+      eval_loss_val = float(eval_loss.mean())
+      logging.info("step: %d, eval_loss: %.5e", step, eval_loss_val)
+      writer.add_scalar("eval_loss", eval_loss_val, step)
+      eval_losses.append((step, eval_loss_val))
+
+    if step % tcfg.snapshot_freq < n_jitted or step >= tcfg.n_iters:
+      if step != state["step"]:
+        raise RuntimeError(f"loop step {step} != state step {state['step']}")
+      ckpt_lib.save_train_state(
+          ckpt_lib.numbered_path(workdir, step // tcfg.snapshot_freq), state)
+      if tcfg.snapshot_sampling:
+        ema = state["ema"]
+        ema.store(model.parameters())
+        ema.copy_to(model.parameters())
+        try:
+          samples, _ = sampling_fn(_seeded_generator(device, config.seed,
+                                                     step, 1))
+        finally:
+          ema.restore(model.parameters())
+        this_dir = os.path.join(sample_dir, f"iter_{step}")
+        os.makedirs(this_dir, exist_ok=True)
+        samples_np = samples.cpu().numpy()
+        with open(os.path.join(this_dir, "sample.np"), "wb") as fout:
+          np.save(fout, samples_np)  # the reference's file name, no .npy
+        nrow = int(np.sqrt(samples_np.shape[0]))
+        save_image(make_grid(samples_np, nrow, padding=2),
+                   os.path.join(this_dir, "sample.png"))
+  writer.flush()
+  return {"initial_step": initial_step, "step": step,
+          "train_losses": train_losses, "eval_losses": eval_losses}

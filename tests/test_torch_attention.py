@@ -82,9 +82,39 @@ def test_wrapper_rejects_mismatch_and_noncontiguous():
     attention.attention(strided, strided, strided)
 
 
-def test_backward_raises_naming_the_training_slice():
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    attention.FlashAttention.backward(None, torch.zeros(1))
+@pytest.mark.parametrize("b,n,c", [(2, 16, 32), (2, 64, 16), (1, 256, 32)])
+def test_dense_backward_matches_jax_flash_bwd_and_autograd(b, n, c):
+  """The plain backward against JAX ``_flash_bwd_impl`` (what the JAX
+  package's custom_vjp runs) and against autograd through the plain
+  forward. Tolerance 5e-4 absolute and relative, the JAX package's own
+  gradient bound (tests/test_attention.py)."""
+  q, k, v = qkv(b, n, c, seed=1)
+  dout = np.random.default_rng(2).normal(size=(b, n, c)).astype(np.float32)
+  tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+  out = attention.dense_attention(tq, tk, tv)
+  got = attention.dense_attention_backward(tq.detach(), tk.detach(),
+                                           tv.detach(), out.detach(),
+                                           torch.from_numpy(dout))
+  jq, jk, jv, jdout = map(jnp.asarray, (q, k, v, dout))
+  jout = jax_attention.dense_attention(jq, jk, jv)
+  want = jax_attention._flash_bwd_impl(jq, jk, jv, jout, jdout, c ** -0.5,
+                                       min(512, n))
+  out.backward(torch.from_numpy(dout))
+  for name, g, w, auto in zip("qkv", got, want, (tq.grad, tk.grad, tv.grad)):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4,
+                               rtol=5e-4, err_msg=name)
+    np.testing.assert_allclose(g.numpy(), auto.numpy(), atol=5e-4, rtol=5e-4,
+                               err_msg=name)
+
+
+def test_wrapper_gradient_on_cpu_is_autograd_and_launches_nothing():
+  q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkv(2, 16, 16))
+  before = (attention.flash_attention_launches,
+            attention.flash_attention_backward_launches)
+  attention.attention(q, k, v).sum().backward()
+  assert q.grad is not None and torch.isfinite(q.grad).all()
+  assert (attention.flash_attention_launches,
+          attention.flash_attention_backward_launches) == before
 
 
 def test_kernel_is_built_for_hopper_from_the_repo_source():
@@ -147,3 +177,82 @@ def test_kernel_stable_at_large_logits(cuda_device, n):
   assert torch.isfinite(out).all()
   err_dense = _err(attention.dense_attention(q, k, v), exact)
   assert _err(out, exact) <= 1.5 * err_dense + TOL
+
+
+BWD_TOL = 5e-4  # the JAX package's gradient bound (tests/test_attention.py)
+
+
+def _grads_through_kernel(q, k, v, dout):
+  leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+  attention.attention(*leaves).backward(dout)
+  return [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(128, 256, 256), (128, 16, 256),
+                                   (2, 1024, 256), (1, 1024, 128),
+                                   (4, 200, 256), (3, 40, 8)])
+def test_kernel_backward_matches_plain_version(cuda_device, b, n, c):
+  torch.backends.cuda.matmul.allow_tf32 = False
+  gen = torch.Generator(device=cuda_device).manual_seed(b + n + c)
+  q, k, v, dout = (torch.randn(b, n, c, device=cuda_device, generator=gen)
+                   for _ in range(4))
+  before = attention.flash_attention_backward_launches
+  got = _grads_through_kernel(q, k, v, dout)
+  torch.cuda.synchronize()
+  assert attention.flash_attention_backward_launches == before + 1
+  want = attention.dense_attention_backward(
+      q, k, v, attention.dense_attention(q, k, v), dout)
+  for g, w in zip(got, want):
+    torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_backward_bf16_and_large_logits(cuda_device):
+  """bf16: no further from the fp64 gradients than the plain bf16 path
+  (x1.5 + 1e-3); logits x30: finite, and no further from fp64 than the
+  plain fp32 path (x1.5 + 5e-4)."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  gen = torch.Generator(device=cuda_device).manual_seed(3)
+  q, k, v, dout = (torch.randn(8, 256, 256, device=cuda_device, generator=gen)
+                   for _ in range(4))
+  for scale, dtype, slack in ((1.0, torch.bfloat16, 1e-3),
+                              (30.0, torch.float32, BWD_TOL)):
+    args = [(q * scale).to(dtype), k.to(dtype), v.to(dtype), dout.to(dtype)]
+    exact = attention.dense_attention_backward(
+        *[a.double() for a in args[:3]],
+        attention.dense_attention(*[a.double() for a in args[:3]]),
+        args[3].double())
+    got = _grads_through_kernel(*args)
+    plain = attention.dense_attention_backward(
+        *args[:3], attention.dense_attention(*args[:3]), args[3])
+    for g, p, e in zip(got, plain, exact):
+      assert torch.isfinite(g).all()
+      assert _err(g, e) <= 1.5 * _err(p, e) + slack, (scale, dtype)
+
+
+@pytest.mark.cuda
+def test_attn_block_gradients_through_kernel(cuda_device):
+  """AttnBlockpp hands the kernel a permuted (non-contiguous) gradient;
+  parameter gradients through the kernel equal those through the plain
+  attention."""
+  from unittest import mock
+  from score_sde_pytorch_tpu_torch.models import layerspp
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  block = layerspp.AttnBlockpp(64, generator=torch.Generator().manual_seed(0),
+                               skip_rescale=True, init_scale=1.0).to(
+                                   cuda_device)
+  x = torch.randn(4, 64, 16, 16, device=cuda_device)
+
+  def grads():
+    block.zero_grad()
+    (block(x) ** 2).sum().backward()
+    return [p.grad.clone() for p in block.parameters()]
+
+  through_kernel = grads()
+  with mock.patch.object(attention, "attention", attention.dense_attention):
+    through_plain = grads()
+  scale = max(g.abs().max() for g in through_plain)
+  for g, w in zip(through_kernel, through_plain):
+    assert (g - w).abs().max() <= 1e-4 * scale
