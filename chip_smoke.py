@@ -5,29 +5,37 @@ NVIDIA GPU. Run it from the root of a checkout:
     python3 chip_smoke.py
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and imports nothing of
-JAX. Phases, each of which fails the run if it fails:
+JAX or of the JAX package. Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit; the kernels built from
    score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
    one nvcc each, started together), with build times and ptxas reports;
+   no attention kernel may spill registers, and each must hold tensor-core
+   (HMMA) instructions where cuobjdump can show them;
 2. [kernel] the attention forward kernel against the plain PyTorch
    attention on the card, at the main path's shapes and a few more: fp32
-   (TF32 off), bf16, logits x30, and the time of each;
+   (TF32 off), bf16, logits x30; the times of the kernel, the plain version
+   and F.scaled_dot_product_attention (the library's one call, timed only)
+   beside the card's bound;
 3. [kernel-bwd] the attention backward kernels against the plain backward
    (and autograd through the plain attention) at the train path's shapes
-   and a few more, the same three cases, and times;
+   and a few more, the same three cases, bitwise repeatability, and times
+   (with forward + backward of the kernels and of the library's call);
 4. [fused-act] the fused bias + leaky ReLU kernels (forward, backward)
    against their plain versions, fp32 and bf16, and times;
 5. [forward] the full-width flagship NCSN++
-   (configs/ve/cifar10_ncsnpp_continuous.py) forward on the card through
-   the kernel against through the plain attention, and against the CPU;
+   (score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py)
+   forward on the card through the kernel against through the plain
+   attention, and against the CPU;
 6. [grad] one loss of that model (injected t and z) and its parameter
    gradients through the kernels against through the plain attention, and
    the loss against the CPU's;
 7. [sample] the user's entry point: a reference-schema checkpoint of that
    model in a temporary workdir, then ``main --mode sample`` in process at
    full width (num_scales cut to 100), the samples checked, and the count
-   of kernel launches held to 6 attention calls x NFE x rounds;
+   of kernel launches held to 6 attention calls x NFE x rounds; then
+   [sample-profile], the sampler at batch 64: ms per NFE, device idle share
+   and the attention kernel's share of device time;
 8. [train] ``main --mode train`` in process at full width and batch 128
    (10 steps with snapshot sampling, then a resume to step 20), its
    checkpoints, samples and launch counts checked; then the train step's
@@ -50,7 +58,7 @@ import time
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FLAGSHIP = os.path.join(ROOT, "score_sde_pytorch_tpu", "configs", "ve",
+FLAGSHIP = os.path.join(ROOT, "score_sde_pytorch_tpu_torch", "configs", "ve",
                         "cifar10_ncsnpp_continuous.py")
 KERNEL_SOURCE = "score_sde_pytorch_tpu_torch/ops/csrc/flash_attention.cu"
 TPU_KERNEL = "score_sde_pytorch_tpu/ops/attention.py:77"
@@ -61,8 +69,11 @@ SMOKE_SCALES = 100           # cut from 1000 for the smoke's time
 SMOKE_BATCH = 16
 SMOKE_ROUNDS = 2
 ATTN_PER_FORWARD = 6         # 5 blocks at 16x16 and the 4x4 bottleneck
-ATTN_SHAPES = [(64, 256, 256), (64, 16, 256), (2, 1024, 256), (4, 200, 256),
-               (1, 4096, 256)]
+# The path's shapes first: sampling (batch 64), training (batch 128), the
+# configs' eval batch (1024), the 4x4 bottleneck, then the 32x32 and
+# ragged shapes of other configs.
+ATTN_SHAPES = [(64, 256, 256), (128, 256, 256), (1024, 256, 256),
+               (64, 16, 256), (2, 1024, 256), (4, 200, 256), (1, 4096, 256)]
 FP32_TOL = 2e-5
 FORWARD_RTOL = 1e-4
 BWD_SHAPES = [(128, 256, 256), (128, 16, 256), (2, 1024, 256),
@@ -70,6 +81,12 @@ BWD_SHAPES = [(128, 256, 256), (128, 16, 256), (2, 1024, 256),
 BWD_TOL = 5e-4               # the JAX package's gradient bound
 ACT_SHAPES = [(128, 256, 16, 16), (128, 128, 32, 32)]
 ACT_TOL = 1e-6
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
+# tensor cores' TF32 rate, the card's fastest on fp32 inputs, and HBM.
+TF32_FLOPS = 495e12
+HBM_BYTES_PER_S = 3.35e12
+PROFILE_BATCH = 64           # the sampler's profiled window
+PROFILE_SCALES = 10          # 20 NFE
 GRAD_BATCH = 8
 GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-5
@@ -111,15 +128,69 @@ def time_ms(torch, fn, iters: int = 50) -> float:
   return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float) -> tuple:
+  """The least time the card could take, in ms, and what bounds it: the
+  larger of the operations at the TF32 peak and the bytes at HBM's rate."""
+  ops_ms = flops / TF32_FLOPS * 1e3
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _sass_mma_counts(lib_path) -> dict:
+  """HMMA (tensor-core) instructions per kernel in the built library, or {}
+  where cuobjdump is not beside nvcc."""
+  from score_sde_pytorch_tpu_torch.ops import build
+  tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+  if not os.path.isfile(tool):
+    return {}
+  sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                        text=True, check=True).stdout
+  counts, name = {}, None
+  for line in sass.splitlines():
+    if "Function :" in line:
+      name = line.split(":", 1)[1].strip()
+      counts[name] = 0
+    elif name is not None and re.search(r"\bHMMA\b", line):
+      counts[name] += 1
+  return counts
+
+
 def phase_build(*modules) -> None:
-  """One nvcc per kernel source, all started together."""
+  """One nvcc per kernel source, all started together. Fails if an
+  attention kernel spills registers or has no tensor-core instruction."""
   with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
     libs = list(pool.map(lambda m: m.kernel_library(), modules))
   for lib in libs:
     say(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
+    kernel = None
     for line in lib.compiler_log.splitlines():
+      if "Compiling entry function" in line:
+        kernel = line.split("'")[1]
       if "registers" in line or "spill" in line or "Compiling" in line:
         say("[build]  ", line.strip())
+      spills = re.search(r"(\d+) bytes spill stores", line)
+      if spills and kernel and "flash_attention" in kernel:
+        check(int(spills.group(1)) == 0, f"{kernel} spills registers")
+    if lib.name == "flash_attention":
+      mma = {k: v for k, v in _sass_mma_counts(lib.path).items()
+             if re.search(r"flash_attention_(fwd|bwd_dkdv|bwd_dq)", k)}
+      for name, count in mma.items():
+        say(f"[build]   {count} HMMA (mma.sync) in {name[:100]}")
+        check(count > 0, f"{name} has no tensor-core instruction")
+      if not mma:
+        say("[build]   cuobjdump not found: tensor-core use not checked")
+
+
+def sdpa_backend(torch, fn) -> str:
+  """The device kernels one call of ``fn`` launches (which backend
+  F.scaled_dot_product_attention picked)."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  names = sorted({evt.key for evt in prof.key_averages()
+                  if str(getattr(evt, "device_type", "")).endswith("CUDA")})
+  return "; ".join(n[:60] for n in names) or "not measured"
 
 
 def phase_kernel(torch, attn) -> dict:
@@ -133,7 +204,12 @@ def phase_kernel(torch, attn) -> dict:
     plain fp32 path's, x1.5 + 2e-5. Against the plain path itself no fp32
     bound below fp32's own error applies: at x30 the plain path is up to
     1.2e-4 from the fp64 result on these inputs, because logits of ~100
-    carry fp32 rounding of ~1e-5 that the peaked softmax amplifies."""
+    carry fp32 rounding of ~1e-5 that the peaked softmax amplifies.
+
+  Times: the kernel, the plain version, and the library's one call that
+  computes the same function, F.scaled_dot_product_attention on
+  [B, 1, N, C] (timed only: the port never calls it), beside the bound."""
+  sdpa = torch.nn.functional.scaled_dot_product_attention
   gen = torch.Generator(device="cuda").manual_seed(0)
   worst = 0.0
   record = None
@@ -150,14 +226,17 @@ def phase_kernel(torch, attn) -> dict:
     check(math.isfinite(err) and err <= FP32_TOL,
           f"fp32 kernel vs plain at {(b, n, c)}: {err:.3g} > {FP32_TOL}")
     worst = max(worst, err)
+    del exact
 
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    err_bf16 = (attn.attention(qb, kb, vb).double() - exact).abs().max().item()
+    exact16 = attn.dense_attention(*(t.double() for t in (qb, kb, vb)))
+    err_bf16 = (attn.attention(qb, kb, vb).double() - exact16).abs().max().item()
     err_bf16_plain = (attn.dense_attention(qb, kb, vb).double()
-                      - exact).abs().max().item()
+                      - exact16).abs().max().item()
     check(err_bf16 <= err_bf16_plain * 1.5 + 1e-3,
           f"bf16 at {(b, n, c)}: kernel {err_bf16:.3g} vs plain "
           f"{err_bf16_plain:.3g}")
+    del exact16
 
     q30 = q * 30  # logits far past exp's range unless the softmax is online
     out30 = attn.attention(q30, k, v)
@@ -172,17 +251,27 @@ def phase_kernel(torch, attn) -> dict:
     check(err30_exact <= 1.5 * err30_plain_exact + FP32_TOL,
           f"x30 at {(b, n, c)}: kernel-exact {err30_exact:.3g}, plain-exact "
           f"{err30_plain_exact:.3g}")
+    del exact30, out30, plain30, q30
 
+    q4, k4, v4 = (t[:, None] for t in (q, k, v))
     ms = time_ms(torch, lambda: attn.attention(q, k, v))
     plain_ms = time_ms(torch, lambda: attn.dense_attention(q, k, v))
+    library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4))
+    ms_again = time_ms(torch, lambda: attn.attention(q, k, v))
+    bound_ms, bound_by = bound(4.0 * b * n * n * c, 4.0 * b * n * c * 4)
     say(f"[kernel] B,N,C={b},{n},{c}: fp32 kernel-plain {err:.3g}, vs fp64 "
         f"kernel {err_exact:.3g} plain {err_plain_exact:.3g} | bf16 vs fp64 "
         f"kernel {err_bf16:.3g} plain {err_bf16_plain:.3g} | x30 kernel-plain "
         f"{err30:.3g}, vs fp64 kernel {err30_exact:.3g} plain "
-        f"{err30_plain_exact:.3g} | fp32 ms kernel {ms:.4f} plain "
-        f"{plain_ms:.4f}")
+        f"{err30_plain_exact:.3g}")
+    say(f"[kernel]   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) plain "
+        f"{plain_ms:.4f} sdpa {library_ms:.4f} bound {bound_ms:.4f} "
+        f"({bound_by}); share of bound {bound_ms / ms:.3f}")
     if record is None:
-      record = {"ms": ms, "plain_ms": plain_ms}
+      record = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+      say(f"[kernel]   sdpa backend: "
+          f"{sdpa_backend(torch, lambda: sdpa(q4, k4, v4))}")
   record["max_abs_err"] = worst
   return record
 
@@ -348,17 +437,44 @@ def phase_kernel_bwd(torch, attn) -> dict:
           f"x30 backward at {(b, n, c)}: kernel-exact {err30:.3g}, "
           f"plain-exact {err30_plain:.3g}")
 
+    again = through_kernel(q, k, v, dout)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"backward not bitwise repeatable at {(b, n, c)}")
+
     out, lse = attn._launch_flash_attention(q, k, v, with_lse=True)
     ms = time_ms(torch, lambda: attn._launch_flash_attention_backward(
         q, k, v, out, lse, dout), iters=20)
     plain_ms = time_ms(torch, lambda: attn.dense_attention_backward(
         q, k, v, out, dout), iters=20)
+    # Forward + backward of the kernels and of the library's call
+    # (F.scaled_dot_product_attention on [B, 1, N, C]; no single library
+    # call computes the backward alone).
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    wide = [t[:, None] for t in leaves]
+    dout4 = dout[:, None]
+    both_ms = time_ms(torch, lambda: torch.autograd.grad(
+        attn.attention(*leaves), leaves, dout), iters=20)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_both_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(*wide), leaves, dout4), iters=20)
+    ms_again = time_ms(torch, lambda: attn._launch_flash_attention_backward(
+        q, k, v, out, lse, dout), iters=20)
+    bound_ms, bound_by = bound(10.0 * b * n * n * c,
+                               (8.0 * b * n * c + b * n) * 4)
     say(f"[kernel-bwd] B,N,C={b},{n},{c}: fp32 kernel-plain {err:.3g}, "
         f"kernel-autograd {err_auto:.3g} | bf16 vs fp64 kernel {err16:.3g} "
         f"plain {err16_plain:.3g} | x30 vs fp64 kernel {err30:.3g} plain "
-        f"{err30_plain:.3g} | fp32 ms kernel {ms:.4f} plain {plain_ms:.4f}")
+        f"{err30_plain:.3g} | bitwise repeatable")
+    say(f"[kernel-bwd]   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) "
+        f"plain {plain_ms:.4f} bound {bound_ms:.4f} ({bound_by}); share of "
+        f"bound {bound_ms / ms:.3f} | forward+backward: kernels "
+        f"{both_ms:.4f} sdpa {sdpa_both_ms:.4f}")
     if record is None:
-      record = {"ms": ms, "plain_ms": plain_ms}
+      record = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+      say(f"[kernel-bwd]   sdpa backend (forward+backward): "
+          + sdpa_backend(torch, lambda: torch.autograd.grad(
+              sdpa(*wide), leaves, dout4)))
   record["max_abs_err"] = worst
   return record
 
@@ -394,12 +510,19 @@ def phase_fused_act(torch, act) -> tuple:
             f"{err16:.3g} vs plain {err16_plain:.3g}")
       ms = time_ms(torch, lambda: kernel(x, bias, g))
       plain_ms = time_ms(torch, lambda: plain(x, bias, g))
+      # Reads x (and g in the backward) and the bias, writes one tensor; a
+      # few operations per element, far under the bytes' time.
+      bound_ms, bound_by = bound(4.0 * x.numel(),
+                                 ((2 + i) * x.numel() + bias.numel()) * 4)
       say(f"[fused-act] {('forward', 'backward')[i]} {shape}: fp32 "
           f"kernel-plain {err:.3g} | bf16 vs fp64 kernel {err16:.3g} plain "
           f"{err16_plain:.3g} | fp32 ms kernel {ms:.4f} plain "
-          f"{plain_ms:.4f}")
+          f"{plain_ms:.4f} bound {bound_ms:.4f} ({bound_by}); share of "
+          f"bound {bound_ms / ms:.3f}")
       if records[i] is None:
-        records[i] = {"ms": ms, "plain_ms": plain_ms}
+        # No single PyTorch call computes leaky_relu(x + b, 0.2) * sqrt(2).
+        records[i] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
   for record, err in zip(records, worst):
     record["max_abs_err"] = err
   return tuple(records)
@@ -489,6 +612,81 @@ def _kernel_category(name: str) -> str:
   return "GroupNorm, elementwise, reductions, copies"
 
 
+def _device_us_by_kernel(prof) -> dict:
+  """Device time (us) by kernel name: device-side events, less the ranges
+  the optimizer annotates on the device's timeline (they span kernels that
+  are counted already)."""
+  by_kernel = {}
+  for evt in prof.key_averages():
+    if (str(getattr(evt, "device_type", "")).endswith("CUDA")
+        and not getattr(evt, "is_user_annotation", False)
+        and not evt.key.startswith(("Optimizer.", "ProfilerStep"))):
+      us = getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0))
+      by_kernel[evt.key] = by_kernel.get(evt.key, 0) + us
+  return by_kernel
+
+
+def _report_families(tag: str, by_kernel: dict, count: int,
+                     unit: str) -> None:
+  busy_us = sum(by_kernel.values())
+  families = {}
+  for name, us in by_kernel.items():
+    cat = _kernel_category(name)
+    families[cat] = families.get(cat, 0) + us
+  for cat, us in sorted(families.items(), key=lambda kv: -kv[1]):
+    say(f"{tag}   {cat}: {us / 1e3 / count:.3f} ms/{unit} "
+        f"({us / busy_us:.1%} of device time)")
+  for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+    say(f"{tag}     {us / 1e3 / count:8.3f} ms/{unit}  {name[:110]}")
+
+
+def phase_sample_profile(torch, model, card_line: str) -> None:
+  """The PC sampler at batch 64 over PROFILE_SCALES steps (2 NFE each), as
+  ``run_lib.sample`` builds it with no device given (the model's device):
+  ms per NFE unprofiled, then a profiled run for the device's busy time,
+  the attention kernel's share of it and the idle share."""
+  from torch.profiler import ProfilerActivity, profile
+  from score_sde_pytorch_tpu_torch import configs, datasets, sampling
+  from score_sde_pytorch_tpu_torch import sde as sde_lib
+  config = configs.load_config(FLAGSHIP, [f"model.num_scales={PROFILE_SCALES}"])
+  size = config.data.image_size
+  sampler = sampling.get_sampling_fn(
+      config, sde_lib.build_sde(config), model,
+      (PROFILE_BATCH, size, size, config.data.num_channels),
+      datasets.get_data_inverse_scaler(config))
+  gen = torch.Generator(device="cuda").manual_seed(6)
+  samples, nfe = sampler(gen)  # warm-up
+  check(samples.device.type == "cuda", "the sampler ran off the card")
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  sampler(gen)
+  torch.cuda.synchronize()
+  ms_nfe = (time.perf_counter() - start) * 1e3 / nfe
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    start = time.perf_counter()
+    sampler(gen)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+  by_kernel = _device_us_by_kernel(prof)
+  busy_ms = sum(by_kernel.values()) / 1e3
+  attn_ms = sum(us for name, us in by_kernel.items()
+                if _kernel_category(name) == "attention forward") / 1e3
+  say(f"[sample-profile] batch {PROFILE_BATCH}, {nfe} NFE: {ms_nfe:.3f} "
+      f"ms/NFE = {PROFILE_BATCH * 1e3 / (ms_nfe * nfe):.2f} samples/s at "
+      f"this NFE ({card_line})")
+  if busy_ms <= 0:
+    say("[sample-profile] profiler: no device time recorded; shares not "
+        "measured")
+    return
+  say(f"[sample-profile] device busy {busy_ms / nfe:.3f} ms/NFE: idle share "
+      f"{1 - busy_ms / (ms_nfe * nfe):.3f} of the unprofiled wall, "
+      f"{1 - busy_ms / wall_ms:.3f} of the profiled; attention kernel "
+      f"{attn_ms / nfe:.4f} ms/NFE = {attn_ms / busy_ms:.1%} of device time")
+  _report_families("[sample-profile]", by_kernel, nfe, "NFE")
+
+
 def phase_train_time(torch, config, card_line: str) -> None:
   """The train step at batch 128 as the loop runs it (one n-step call of
   ``training.n_jitted_steps`` steps at a time): wall ms per step over
@@ -532,16 +730,7 @@ def phase_train_time(torch, config, card_line: str) -> None:
     start = time.perf_counter()
     steps(PROFILED_STEPS)
     wall_us = (time.perf_counter() - start) * 1e6
-  by_kernel = {}
-  for evt in prof.key_averages():
-    # Device-side events, less the ranges the optimizer annotates on the
-    # device's timeline (they span kernels that are counted already).
-    if (str(getattr(evt, "device_type", "")).endswith("CUDA")
-        and not getattr(evt, "is_user_annotation", False)
-        and not evt.key.startswith(("Optimizer.", "ProfilerStep"))):
-      us = getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0))
-      by_kernel[evt.key] = by_kernel.get(evt.key, 0) + us
+  by_kernel = _device_us_by_kernel(prof)
   busy_us = sum(by_kernel.values())
   if busy_us <= 0:
     say("[train] profiler: no device time recorded; idle share not measured")
@@ -552,15 +741,7 @@ def phase_train_time(torch, config, card_line: str) -> None:
       f"unprofiled {ms:.2f} ms/step, {1 - busy_us / wall_us:.3f} of the "
       f"profiled window's wall {wall_us / 1e3 / PROFILED_STEPS:.2f} ms/step "
       f"({card_line})")
-  families = {}
-  for name, us in by_kernel.items():
-    cat = _kernel_category(name)
-    families[cat] = families.get(cat, 0) + us
-  for cat, us in sorted(families.items(), key=lambda kv: -kv[1]):
-    say(f"[train]   {cat}: {us / 1e3 / PROFILED_STEPS:.2f} ms/step "
-        f"({us / busy_us:.1%} of device time)")
-  for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-    say(f"[train]     {us / 1e3 / PROFILED_STEPS:8.3f} ms/step  {name[:110]}")
+  _report_families("[train]", by_kernel, PROFILED_STEPS, "step")
 
 
 def phase_train(torch, attn, card_line: str) -> tuple:
@@ -674,15 +855,23 @@ def main() -> int:
   (torch.backends.cuda.matmul.allow_tf32,
    torch.backends.cudnn.allow_tf32) = defaults
   launches = phase_sample(torch, attn, config, model, card_line)
+  attn.flash_attention_launches = 0
+  phase_sample_profile(torch, model, card_line)
+  profile_launches = attn.flash_attention_launches
+  check(profile_launches == ATTN_PER_FORWARD * PROFILE_SCALES * 2 * 3,
+        f"{profile_launches} kernel launches in 3 sampler runs of "
+        f"{PROFILE_SCALES * 2} NFE")
   del model
   act.fused_leaky_relu_launches = act.fused_leaky_relu_backward_launches = 0
   train_fwd, train_bwd = phase_train(torch, attn, card_line)
   act_launches = (act.fused_leaky_relu_launches,
                   act.fused_leaky_relu_backward_launches)
-  # The card's machine has jax installed, so an import of it would not fail.
-  leaked = sorted(m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-  check(not leaked, f"the port imported JAX: {leaked[:5]}")
+  # The card's machine has jax installed, so an import of it would not fail;
+  # nor would one of the JAX package, which sits beside the port.
+  leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+      "jax", "jaxlib", "flax", "score_sde_pytorch_tpu"))
+  check(not leaked, f"the port imported JAX or the JAX package: "
+        f"{leaked[:5]}")
 
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
@@ -698,8 +887,9 @@ def main() -> int:
   say(json.dumps({"kernels": [{
       "name": name, "route": "cuda", "source": source, "replaces": replaces,
       "launches": n, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-      "plain_ms": rec["plain_ms"]} for name, source, replaces, n, rec
-      in kernels]}))
+      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+      "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+      for name, source, replaces, n, rec in kernels]}))
   say(card_line)
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

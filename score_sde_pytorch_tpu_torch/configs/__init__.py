@@ -1,10 +1,19 @@
-"""Load the JAX package's config files, with ``--config.a.b=value`` overrides.
+"""The port's config files, and their loader with ``--config.a.b=value``
+overrides.
 
-The port keeps one source of hyperparameters: the files under
-score_sde_pytorch_tpu/configs/. They call only ``ml_collections.ConfigDict()``
-and need no JAX. Where ``ml_collections`` is not installed, a minimal
-attribute dictionary (:class:`ConfigDict`) is bound in as ``ml_collections``
-while the files load, and removed again afterwards.
+This package holds a copy of the JAX package's declarative config tree
+(``builder.py``, the ``default_*_configs.py`` bases and the leaf files under
+``ve/``, ``vp/``, ``subvp/`` and ``tpu/``), with imports pointed at the port;
+``tests/test_torch_copies.py`` holds every leaf equal to the JAX package's
+key for key. Their comments are the JAX package's and speak of it. The files
+call only ``ml_collections.ConfigDict()``. Where ``ml_collections`` is not
+installed, a minimal attribute dictionary (:class:`ConfigDict`) is bound in
+as ``ml_collections`` while a file loads, and removed again afterwards.
+
+:func:`load_config` takes a path to a config file. A path into the JAX
+package's tree (``.../score_sde_pytorch_tpu/configs/<rel>``) loads the
+port's copy at ``<rel>``, so the JAX package's command lines keep working;
+no file of the JAX package is ever run.
 
 Keys with no PyTorch meaning: ``training.prng_impl`` and
 ``model.spatial_sharding`` are ignored. ``model.remat=True`` and
@@ -17,8 +26,11 @@ import contextlib
 import importlib.util
 import sys
 import types
+from pathlib import Path
 from typing import Iterable
 
+CONFIG_DIR = Path(__file__).resolve().parent
+_JAX_TREE = ("score_sde_pytorch_tpu", "configs")
 _MISSING = object()
 
 
@@ -123,16 +135,41 @@ def check_supported(config) -> None:
                               "open question in PERF.md)")
 
 
-def load_config(path: str, overrides: Iterable[str] = ()):
-  """Run ``get_config()`` of the config file at ``path``, then apply
-  ``overrides`` and check that the port supports the result."""
+def resolve(path: str) -> Path:
+  """The config file that ``path`` names: the port's copy for a path into
+  the JAX package's config tree (FileNotFoundError if the port has none),
+  else ``path`` itself."""
+  parts = Path(path).parts
+  for i in range(len(parts) - len(_JAX_TREE), -1, -1):
+    if parts[i:i + len(_JAX_TREE)] == _JAX_TREE:
+      copy = CONFIG_DIR.joinpath(*parts[i + len(_JAX_TREE):])
+      if copy == CONFIG_DIR or not copy.is_file():
+        raise FileNotFoundError(
+            f"{path} is a JAX-package config path and the port has no copy "
+            f"at {copy}; the port's configs live under {CONFIG_DIR}")
+      return copy
+  return Path(path)
+
+
+def read_config(path: str):
+  """``get_config()`` of the config file at ``path`` (see :func:`resolve`),
+  as written: no overrides, no support check."""
+  path = resolve(path)
+  if not path.is_file():
+    raise FileNotFoundError(f"no config file at {path}")
   spec = importlib.util.spec_from_file_location("_port_config_file", path)
   if spec is None or spec.loader is None:
     raise FileNotFoundError(f"no config file at {path}")
   module = importlib.util.module_from_spec(spec)
   with _ml_collections_available():
     spec.loader.exec_module(module)
-    config = module.get_config()
+    return module.get_config()
+
+
+def load_config(path: str, overrides: Iterable[str] = ()):
+  """:func:`read_config`, then ``overrides`` applied and the result checked
+  to be one the port supports."""
+  config = read_config(path)
   apply_overrides(config, overrides)
   check_supported(config)
   return config

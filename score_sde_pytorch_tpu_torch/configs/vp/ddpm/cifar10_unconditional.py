@@ -1,0 +1,10 @@
+"""Hyperparameters of reference configs/vp/ddpm/cifar10_unconditional.py (declarative form)."""
+from score_sde_pytorch_tpu_torch.configs.builder import declare
+
+get_config = declare(
+    'cifar10',
+    training=dict(sde='vpsde', continuous=False, reduce_mean=True),
+    sampling=dict(method='pc', predictor='ancestral_sampling', corrector='none'),
+    data=dict(centered=True),
+    model=dict(name='ddpm', normalization='GroupNorm', nonlinearity='swish', nf=128, attn_resolutions=(16,), resamp_with_conv=True, conditional=False, scale_by_sigma=False, ema_rate=0.9999, ch_mult=(1, 2, 2, 2), num_res_blocks=2),
+)

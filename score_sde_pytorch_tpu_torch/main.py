@@ -1,7 +1,7 @@
 """Command line of the port.
 
     python -m score_sde_pytorch_tpu_torch.main \\
-        --config score_sde_pytorch_tpu/configs/ve/cifar10_ncsnpp_continuous.py \\
+        --config score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py \\
         --workdir RUN_DIR --mode train|sample [--num_samples N] \\
         [--checkpoint N] [--device cuda|cpu] [--config.section.key=value ...]
 

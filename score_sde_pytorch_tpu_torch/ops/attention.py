@@ -102,6 +102,9 @@ def kernel_library() -> build.Library:
   bwd = lib.handle.flash_attention_backward
   bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, i32, ptr]
   bwd.restype = ctypes.c_int
+  scratch = lib.handle.flash_attention_backward_scratch
+  scratch.argtypes = [i32, i32]
+  scratch.restype = ctypes.c_longlong
   return lib
 
 
@@ -142,22 +145,25 @@ def _launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
 def _launch_flash_attention_backward(q, k, v, out, lse, dout):
   """Backward kernels; returns ``(dq, dk, dv)`` in the inputs' dtype."""
   global flash_attention_backward_launches
-  fn = kernel_library().handle.flash_attention_backward
+  lib = kernel_library().handle
   b, n, c = q.shape
   if dout.dtype != q.dtype or dout.shape != q.shape:
     raise ValueError(f"attention backward wants a gradient of the output's "
                      f"shape and dtype {list(q.shape)} {q.dtype}, got "
                      f"{list(dout.shape)} {dout.dtype}")
   dout = dout.contiguous()  # AttnBlockpp hands a permuted gradient
-  delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
+  # dS ([B, N, N rounded up to 32]) for the dQ product, then D = rowsum(dO∘O).
+  scratch = torch.empty(lib.flash_attention_backward_scratch(b, n),
+                        dtype=torch.float32, device=q.device)
   dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
   _check_aligned(q, k, v, out, dout, dq, dk, dv)
   with torch.cuda.device(q.device):
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, n, c, c ** -0.5,
-             _DTYPE_CODES[q.dtype], stream)
+    err = lib.flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, n, c, c ** -0.5,
+        _DTYPE_CODES[q.dtype], stream)
   _raise_on(err, "flash_attention backward", q.shape, q.dtype)
   flash_attention_backward_launches += 1
   return dq, dk, dv

@@ -13,12 +13,11 @@ import time
 import numpy as np
 import torch
 
-from score_sde_pytorch_tpu import datasets
-from score_sde_pytorch_tpu.utils.image import make_grid, save_image
 from score_sde_pytorch_tpu_torch import checkpoint as ckpt_lib
-from score_sde_pytorch_tpu_torch import losses, sampling
+from score_sde_pytorch_tpu_torch import datasets, losses, sampling
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
+from score_sde_pytorch_tpu_torch.utils.image import make_grid, save_image
 
 try:
   from tensorboardX import SummaryWriter
@@ -142,8 +141,8 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
 
   A resumed run repeats an uninterrupted one: the checkpoint carries the
   generators' states, the data streams are replayed to where the run
-  stopped (numpy batches, ``data.loader_backend='python'``, in one fixed
-  order), and the eval and sampling draws depend only on the step.
+  stopped (the port's numpy batches, in one fixed order), and the eval and
+  sampling draws depend only on the step.
 
   Returns ``{"initial_step", "step", "train_losses", "eval_losses"}``, the
   losses as ``(step, value)`` pairs of the logged values."""
@@ -162,11 +161,8 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
     ckpt_lib.restore_train_state(meta, state)
   initial_step = state["step"]
 
-  # The native loader's worker threads may reorder batches, so the port
-  # reads the numpy pipeline, whose order a resumed run can replay.
-  config.data.loader_backend = "python"
-  train_iter, eval_iter = datasets.get_dataset(config, process_index=0,
-                                               process_count=1)
+  # The numpy pipeline's order is fixed, so a resumed run can replay it.
+  train_iter, eval_iter = datasets.get_dataset(config)
   scaler = datasets.get_data_scaler(config)
   n_jitted = config.training.get("n_jitted_steps", 1)
   tcfg = config.training

@@ -129,12 +129,14 @@ def get_pc_sampler(sde, model, shape, predictor, corrector,
   ``shape`` is NHWC, as in the JAX package. Returns
   ``sampler(generator) -> (samples, nfe)`` with NHWC samples on ``device``
   and ``nfe = N * (n_steps + 1)``. Each step runs the corrector, then the
-  predictor, at one time of ``linspace(T, eps, N)``."""
+  predictor, at one time of ``linspace(T, eps, N)``. ``device=None`` takes
+  the device of the model's parameters."""
   predictor = predictor or _PREDICTORS["none"]
   corrector = corrector or _CORRECTORS["none"]
   b, h, w, c = shape
   state_shape = (b, c, h, w)
-  device = torch.device(device) if device is not None else None
+  device = torch.device(device) if device is not None else next(
+      model.parameters()).device
 
   def pc_sampler(generator: torch.Generator):
     score_fn = mutils.get_score_fn(sde, model, train=False,

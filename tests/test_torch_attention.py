@@ -232,6 +232,59 @@ def test_kernel_backward_bf16_and_large_logits(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_backward_is_bitwise_deterministic(cuda_device):
+  """The backward has one writer per output row and sums in a fixed order
+  (dS goes through a scratch, not atomics): two runs give the same bits."""
+  gen = torch.Generator(device=cuda_device).manual_seed(7)
+  q, k, v, dout = (torch.randn(16, 256, 256, device=cuda_device,
+                               generator=gen) for _ in range(4))
+  first = _grads_through_kernel(q, k, v, dout)
+  second = _grads_through_kernel(q, k, v, dout)
+  for a, b in zip(first, second):
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 24])
+def test_kernel_bf16_narrow_channels(cuda_device, c):
+  """bf16 at C = 8 and 24 (not multiples of 16): forward and gradients no
+  further from fp64 than the plain bf16 path (x1.5 + 1e-3)."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  gen = torch.Generator(device=cuda_device).manual_seed(c)
+  q, k, v, dout = (torch.randn(4, 100, c, device=cuda_device,
+                               generator=gen).bfloat16() for _ in range(4))
+  wide = [t.double() for t in (q, k, v)]
+  exact = attention.dense_attention(*wide)
+  assert _err(attention.attention(q, k, v), exact) <= (
+      1.5 * _err(attention.dense_attention(q, k, v), exact) + 1e-3)
+  exact_grads = attention.dense_attention_backward(*wide, exact,
+                                                   dout.double())
+  plain_grads = attention.dense_attention_backward(
+      q, k, v, attention.dense_attention(q, k, v), dout)
+  for g, p, e in zip(_grads_through_kernel(q, k, v, dout), plain_grads,
+                     exact_grads):
+    assert _err(g, e) <= 1.5 * _err(p, e) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(3, 1, 64), (2, 200, 256)])
+def test_kernel_ragged_lengths(cuda_device, b, n, c):
+  """N = 1 (one valid row and column in every tile) and N = 200 (ragged
+  last tiles): forward within 2e-5, gradients within 5e-4 of plain."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  gen = torch.Generator(device=cuda_device).manual_seed(n)
+  q, k, v, dout = (torch.randn(b, n, c, device=cuda_device, generator=gen)
+                   for _ in range(4))
+  torch.testing.assert_close(attention.attention(q, k, v),
+                             attention.dense_attention(q, k, v),
+                             atol=TOL, rtol=TOL)
+  want = attention.dense_attention_backward(
+      q, k, v, attention.dense_attention(q, k, v), dout)
+  for g, w in zip(_grads_through_kernel(q, k, v, dout), want):
+    torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.cuda
 def test_attn_block_gradients_through_kernel(cuda_device):
   """AttnBlockpp hands the kernel a permuted (non-contiguous) gradient;
   parameter gradients through the kernel equal those through the plain

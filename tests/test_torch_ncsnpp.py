@@ -32,7 +32,7 @@ from score_sde_pytorch_tpu_torch.ops import upfirdn2d
 jax_fir = importlib.import_module("score_sde_pytorch_tpu.ops.upfirdn2d")
 
 ATOL, RTOL = 1e-4, 1e-3
-FLAGSHIP = "score_sde_pytorch_tpu/configs/ve/cifar10_ncsnpp_continuous.py"
+FLAGSHIP = "score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py"
 TINY = ("model.nf=16", "model.ch_mult=(1,2)", "model.num_res_blocks=1",
         "model.attn_resolutions=(8,)", "data.image_size=16")
 
