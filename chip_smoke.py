@@ -39,7 +39,20 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails:
 8. [train] ``main --mode train`` in process at full width and batch 128
    (10 steps with snapshot sampling, then a resume to step 20), its
    checkpoints, samples and launch counts checked; then the train step's
-   time, images/s, peak memory and device idle share at batch 128.
+   time, images/s, peak memory and device idle share at batch 128;
+9. [eval] ``main --mode eval`` in process at full width on the checkpoint
+   that [train] wrote, with the eval loss, bits/dim (probability-flow ODE,
+   Hutchinson divergence by vjp through both attention kernels) and
+   sampling (the ODE sampler) -> InceptionV3 -> FID/IS/KID, on a small
+   ``.npz`` test split, seeded random Inception weights and dataset
+   statistics made from that split: its files, finite scores, and the
+   kernel launches (6 forward and 6 backward attention calls per drift
+   evaluation of the bits/dim stage) checked; then, with TF32 off, the
+   divergence through the kernels against through the plain attention and
+   the card's Inception features against the CPU's; the time of one
+   augmented drift evaluation (forward + vjp) against the plain forward,
+   the attention kernels' share of its device time, the peak memory of a
+   chunked evaluation at batch 1024, and the bits/dim with TF32 on vs off.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
@@ -98,6 +111,14 @@ TRAIN_FLAGS = {"training.batch_size": TRAIN_BATCH, "training.log_freq": 5,
                "model.num_scales": SMOKE_SCALES}
 TIMED_STEPS = 10
 PROFILED_STEPS = 5
+EVAL_BATCH = 32              # eval.batch_size cut from 1024 for the time
+EVAL_TRAIN_IMAGES = 64       # the .npz split sizes
+DIV_BATCH = 8
+DIV_RTOL = 1e-4
+INCEPTION_CHECK = 4          # images through the card's and the CPU's
+INCEPTION_TOL = 1e-4         # of max |pool_3|
+DRIFT_BATCH = 64
+DRIFT_BIG_BATCH = 1024       # the configs' eval.batch_size
 
 
 def check(ok: bool, what: str) -> None:
@@ -744,10 +765,10 @@ def phase_train_time(torch, config, card_line: str) -> None:
   _report_families("[train]", by_kernel, PROFILED_STEPS, "step")
 
 
-def phase_train(torch, attn, card_line: str) -> tuple:
-  """``main --mode train`` in process at full width: 10 steps with a
-  snapshot sample grid, then a resume to step 20. Returns the forward and
-  backward kernel launch counts of the two runs."""
+def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
+  """``main --mode train`` in process at full width in ``workdir``: 10
+  steps with a snapshot sample grid, then a resume to step 20. Returns the
+  forward and backward kernel launch counts of the two runs."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import checkpoint, configs, main
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -761,48 +782,47 @@ def phase_train(torch, attn, card_line: str) -> tuple:
   initial = [p.detach() for p in mutils.create_model(
       config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()
              if p.requires_grad]
-  with tempfile.TemporaryDirectory() as workdir:
-    attn.flash_attention_launches = 0
-    attn.flash_attention_backward_launches = 0
-    runs = []
-    for n_iters, sampling_on in ((10, True), (20, False)):
-      start = time.perf_counter()
-      runs.append(main.main(
-          ["--config", FLAGSHIP, "--workdir", workdir, "--mode", "train",
-           f"--config.training.n_iters={n_iters}",
-           f"--config.training.snapshot_sampling={sampling_on}"] + flags))
-      say(f"[train] run to step {n_iters} from step "
-          f"{runs[-1]['initial_step']}: {time.perf_counter() - start:.1f} s "
-          f"wall (checkpoints, eval and sampling included)")
-    launches = (attn.flash_attention_launches,
-                attn.flash_attention_backward_launches)
-    log = open(os.path.join(workdir, "stdout.txt")).read()
-    check("Starting training loop at step 10" in log,
-          "the resumed run did not start at step 10")
-    losses_seen = [v for run in runs
-                   for v in run["train_losses"] + run["eval_losses"]]
-    for run in runs:
-      say(f"[train] logged train losses {run['train_losses']}, eval losses "
-          f"{run['eval_losses']}")
-    check(len(losses_seen) == 8
-          and all(math.isfinite(v) for _, v in losses_seen),
-          f"logged losses {losses_seen}")
-    for n in (1, 2):
-      _ckpt_checks(torch, checkpoint.numbered_path(workdir, n), 10 * n,
-                   initial, config.model.ema_rate)
-    restored = mutils.create_model(config, "cpu",
-                                   torch.Generator().manual_seed(0))
-    check(checkpoint.restore_ema(checkpoint.numbered_path(workdir, 2),
-                                 restored) == 20,
-          "checkpoint_2.pth did not restore through restore_ema")
-    grid = os.path.join(workdir, "samples", "iter_10")
-    check(os.path.isfile(os.path.join(grid, "sample.png")),
-          "samples/iter_10/sample.png missing")
-    samples = np.load(os.path.join(grid, "sample.np"))
-    size = config.data.image_size
-    check(samples.shape == (TRAIN_BATCH, size, size, 3)
-          and np.isfinite(samples).all(),
-          f"snapshot samples {samples.shape}")
+  attn.flash_attention_launches = 0
+  attn.flash_attention_backward_launches = 0
+  runs = []
+  for n_iters, sampling_on in ((10, True), (20, False)):
+    start = time.perf_counter()
+    runs.append(main.main(
+        ["--config", FLAGSHIP, "--workdir", workdir, "--mode", "train",
+         f"--config.training.n_iters={n_iters}",
+         f"--config.training.snapshot_sampling={sampling_on}"] + flags))
+    say(f"[train] run to step {n_iters} from step "
+        f"{runs[-1]['initial_step']}: {time.perf_counter() - start:.1f} s "
+        f"wall (checkpoints, eval and sampling included)")
+  launches = (attn.flash_attention_launches,
+              attn.flash_attention_backward_launches)
+  log = open(os.path.join(workdir, "stdout.txt")).read()
+  check("Starting training loop at step 10" in log,
+        "the resumed run did not start at step 10")
+  losses_seen = [v for run in runs
+                 for v in run["train_losses"] + run["eval_losses"]]
+  for run in runs:
+    say(f"[train] logged train losses {run['train_losses']}, eval losses "
+        f"{run['eval_losses']}")
+  check(len(losses_seen) == 8
+        and all(math.isfinite(v) for _, v in losses_seen),
+        f"logged losses {losses_seen}")
+  for n in (1, 2):
+    _ckpt_checks(torch, checkpoint.numbered_path(workdir, n), 10 * n,
+                 initial, config.model.ema_rate)
+  restored = mutils.create_model(config, "cpu",
+                                 torch.Generator().manual_seed(0))
+  check(checkpoint.restore_ema(checkpoint.numbered_path(workdir, 2),
+                               restored) == 20,
+        "checkpoint_2.pth did not restore through restore_ema")
+  grid = os.path.join(workdir, "samples", "iter_10")
+  check(os.path.isfile(os.path.join(grid, "sample.png")),
+        "samples/iter_10/sample.png missing")
+  samples = np.load(os.path.join(grid, "sample.np"))
+  size = config.data.image_size
+  check(samples.shape == (TRAIN_BATCH, size, size, 3)
+        and np.isfinite(samples).all(),
+        f"snapshot samples {samples.shape}")
   evals = 4                    # steps 5, 10, 15 and 20
   steps = 20
   nfe = SMOKE_SCALES * (config.sampling.n_steps_each + 1)
@@ -815,6 +835,278 @@ def phase_train(torch, attn, card_line: str) -> tuple:
   check(launches == want, f"train launches {launches}, want {want}")
   phase_train_time(torch, config, card_line)
   return launches
+
+
+def _write_eval_data(root: str, size: int) -> str:
+  """A small ``.npz`` dataset (train and test splits of uint8 NHWC images
+  from a seed); returns its directory."""
+  import numpy as np
+  rng = np.random.default_rng(7)
+  os.makedirs(root)
+  for split, n in (("train", EVAL_TRAIN_IMAGES), ("test", EVAL_BATCH)):
+    np.savez(os.path.join(root, f"{split}.npz"),
+             images=rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8))
+  return root
+
+
+def phase_eval(torch, attn, workdir: str, card_line: str) -> tuple:
+  """``main --mode eval`` in process on [train]'s checkpoint_2 with all
+  three stages and the ODE sampler, in a working directory that holds the
+  dataset statistics (``assets/stats/``). Returns the run's forward and
+  backward kernel launches."""
+  with tempfile.TemporaryDirectory() as base:
+    return _run_eval(torch, attn, workdir, base, card_line)
+
+
+def _run_eval(torch, attn, workdir: str, base: str, card_line: str) -> tuple:
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import inception, main
+  size = 32
+  data_dir = _write_eval_data(os.path.join(base, "data"), size)
+  weights = inception.write_random_npz(os.path.join(base, "inception.npz"),
+                                       seed=0)
+  # Dataset statistics made from the test split through the same (random)
+  # Inception, in the key layout that gives FID and KID.
+  with np.load(os.path.join(data_dir, "test.npz")) as z:
+    test_images = z["images"]
+  features = inception.InceptionV3Features(weights, device="cuda")
+  os.makedirs(os.path.join(base, "assets", "stats"))
+  np.savez(os.path.join(base, "assets", "stats", f"npz_{size}_stats.npz"),
+           pool_3=features(test_images)["pool_3"])
+  del features
+  say(f"[eval] cuts: eval.batch_size {EVAL_BATCH} (config 1024), a .npz "
+      f"test split of {EVAL_BATCH} random images (one batch, so bits/dim "
+      f"integrates 5 batches: the test split repeated 5 times), "
+      f"num_samples {EVAL_BATCH} (config 50000), sampling.method ode "
+      f"(config pc), random Inception weights (seed 0) and statistics of "
+      f"the test split through them: FID/IS/KID below are random-weights "
+      f"values, not CIFAR-10 scores")
+  overrides = {"eval.begin_ckpt": 2, "eval.end_ckpt": 2,
+               "eval.batch_size": EVAL_BATCH, "eval.enable_loss": True,
+               "eval.enable_bpd": True, "eval.enable_sampling": True,
+               "eval.num_samples": EVAL_BATCH, "sampling.method": "ode",
+               "data.dataset": "NPZ", "data.data_dir": data_dir,
+               "model.num_scales": SMOKE_SCALES}
+  cwd = os.getcwd()
+  os.environ["INCEPTION_WEIGHTS_NPZ"] = weights
+  os.chdir(base)
+  try:
+    attn.flash_attention_launches = 0
+    attn.flash_attention_backward_launches = 0
+    start = time.perf_counter()
+    (record,) = main.main(["--config", FLAGSHIP, "--workdir", workdir,
+                           "--mode", "eval", "--device", "cuda"]
+                          + [f"--config.{k}={v}" for k, v in overrides.items()])
+    seconds = time.perf_counter() - start
+    launches = (attn.flash_attention_launches,
+                attn.flash_attention_backward_launches)
+  finally:
+    os.chdir(cwd)
+    del os.environ["INCEPTION_WEIGHTS_NPZ"]
+  eval_dir = os.path.join(workdir, "eval")
+  want_keys = {"ckpt_2_loss.npz": {"all_losses", "mean_loss"},
+               "test_ckpt_2_bpd.npz": {"bpd"},
+               "ckpt_2_samples_0.npz": {"samples"},
+               "ckpt_2_statistics_0.npz": {"pool_3", "logits"},
+               "report_2.npz": {"inception_score", "fid", "kid"}}
+  for name, keys in want_keys.items():
+    path = os.path.join(eval_dir, name)
+    check(os.path.isfile(path), f"{path} missing")
+    with np.load(path) as z:
+      check(set(z.files) == keys, f"{name} keys {sorted(z.files)}")
+      check(all(np.isfinite(z[k]).all() for k in keys if k != "samples"),
+            f"{name}: non-finite values")
+  with np.load(os.path.join(eval_dir, "test_ckpt_2_bpd.npz")) as z:
+    check(z["bpd"].shape == (5 * EVAL_BATCH,), f"bpd shape {z['bpd'].shape}")
+  check(len(record["bpd_nfe"]) == 5 and max(record["bpd_nfe"]) < 10000 * 6,
+        f"bpd integrations {record['bpd_nfe']}")
+  drift_evals = sum(record["bpd_nfe"])
+  want = (ATTN_PER_FORWARD * (1 + drift_evals + sum(record["sampling_nfe"])),
+          ATTN_PER_FORWARD * drift_evals)
+  say(f"[eval] main --mode eval: {seconds:.1f} s wall; eval loss "
+      f"{record['mean_loss']:.6g}; bits/dim {record['bpd']:.6f} (mean of "
+      f"{5 * EVAL_BATCH}), RK45 NFE per integration {record['bpd_nfe']}, "
+      f"seconds per bpd batch "
+      f"{[round(x, 3) for x in record['bpd_seconds']]} ({card_line})")
+  say(f"[eval] ODE sampler: NFE {record['sampling_nfe']} in "
+      f"{[round(x, 3) for x in record['sampling_seconds']]} s at batch "
+      f"{EVAL_BATCH}; Inception stage {record['inception_seconds'][0]:.3f} s "
+      f"(weights load included); random-weights scores {record['scores']}")
+  say(f"[eval] kernel launches: forward {launches[0]} = {ATTN_PER_FORWARD} x "
+      f"(1 loss batch + {drift_evals} bpd drift evaluations + "
+      f"{sum(record['sampling_nfe'])} sampling NFE), backward calls "
+      f"{launches[1]} = {ATTN_PER_FORWARD} x {drift_evals} bpd drift "
+      f"evaluations")
+  check(launches[1] > 0, "no attention backward launch in the bpd stage")
+  check(launches == want, f"eval launches {launches}, want {want}")
+  check(all(math.isfinite(v) for v in record["scores"].values()),
+        f"scores {record['scores']}")
+  return launches
+
+
+
+def phase_eval_checks(torch, attn, config, model, workdir: str,
+                      card_line: str) -> None:
+  """With TF32 off: the divergence of the full-width drift through the
+  kernels vs through the plain attention (``model`` at unit gain), and the
+  card's Inception features vs the CPU's. Then, at PyTorch's defaults, the
+  time of one augmented drift evaluation (forward + vjp) vs the plain
+  forward at batch 64 and the attention kernels' share of its device time,
+  the peak memory of a chunked evaluation at batch 1024, and the bits/dim
+  of one batch with TF32 on vs off at one fixed probe."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  from score_sde_pytorch_tpu_torch import checkpoint, datasets, inception
+  from score_sde_pytorch_tpu_torch import likelihood, sde as sde_lib
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  sde = sde_lib.build_sde(config)
+  size = config.data.image_size
+  gen = torch.Generator(device="cuda").manual_seed(8)
+  defaults = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+
+  def set_tf32(on: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = on and defaults[0]
+    torch.backends.cudnn.allow_tf32 = on and defaults[1]
+
+  def probe(batch):
+    x = torch.rand(batch, 3, size, size, device="cuda", generator=gen) * 2 - 1
+    eps = likelihood.draw_epsilon(x.shape, gen, "Rademacher", "cuda")
+    return (x, torch.zeros(batch, device="cuda")), eps
+
+  set_tf32(False)
+  y, eps = probe(DIV_BATCH)
+  with likelihood.frozen(model):
+    aug = likelihood.get_augmented_drift(sde, model, eps)
+    attn.flash_attention_backward_launches = 0
+    drift_k, div_k = aug(y, 0.5)
+    torch.cuda.synchronize()
+    bwd = attn.flash_attention_backward_launches
+    with mock.patch.object(attn, "attention", attn.dense_attention):
+      drift_p, div_p = aug(y, 0.5)
+  rel = (div_k - div_p).abs().max().item() / div_p.abs().max().item()
+  rel_drift = ((drift_k - drift_p).abs().max().item()
+               / drift_p.abs().max().item())
+  say(f"[eval-check] divergence (Hutchinson, vjp) of the full-width drift at "
+      f"B={DIV_BATCH}, TF32 off: kernels vs plain attention rel err "
+      f"{rel:.3g} (max |div| {div_p.abs().max().item():.4g}), drift rel err "
+      f"{rel_drift:.3g}; {bwd} backward calls")
+  check(bwd == ATTN_PER_FORWARD, f"{bwd} backward calls in one drift "
+        f"evaluation, want {ATTN_PER_FORWARD}")
+  check(math.isfinite(rel) and rel <= DIV_RTOL,
+        f"divergence kernels vs plain rel {rel:.3g} > {DIV_RTOL}")
+
+  images = np.random.default_rng(9).integers(
+      0, 256, (INCEPTION_CHECK, size, size, 3), dtype=np.uint8)
+  params = inception.random_params(0)
+  on_card = inception.InceptionV3Features("", device="cuda",
+                                          params=params)(images)
+  on_cpu = inception.InceptionV3Features("", device="cpu",
+                                         params=params)(images)
+  err = {k: np.abs(on_card[k] - on_cpu[k]).max() / np.abs(on_cpu[k]).max()
+         for k in on_cpu}
+  say(f"[eval-check] Inception on the card vs the port's CPU Inception, "
+      f"{INCEPTION_CHECK} images, TF32 off: max err / max |.| "
+      + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
+  check(all(v <= INCEPTION_TOL for v in err.values()),
+        f"Inception card vs CPU {err}")
+  set_tf32(True)
+  feats = inception.InceptionV3Features("", device="cuda", params=params)
+  many = np.random.default_rng(10).integers(
+      0, 256, (4 * feats.batch, size, size, 3), dtype=np.uint8)
+  feats(many[:feats.batch])  # warm-up: cuDNN's first-call set-up
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  feats(many)
+  rate = many.shape[0] / (time.perf_counter() - start)
+  say(f"[eval-time] Inception (pool_3 + logits, {size}x{size} -> 299x299) on "
+      f"the card: {rate:.1f} images/s over {many.shape[0]} images at batch "
+      f"{feats.batch}, PyTorch's default TF32 ({card_line})")
+  del feats
+  set_tf32(False)
+
+  # Bits/dim of one batch with TF32 off and on, one probe, [train]'s
+  # checkpoint (EMA weights), the eval split's first dequantized batch.
+  trained = mutils.create_model(config, "cuda",
+                                torch.Generator().manual_seed(config.seed))
+  checkpoint.restore_ema(checkpoint.numbered_path(workdir, 2), trained)
+  data = torch.rand(EVAL_BATCH, 3, size, size, device="cuda", generator=gen)
+  eps_fixed = likelihood.draw_epsilon(data.shape, gen, "Rademacher", "cuda")
+  lik = likelihood.get_likelihood_fn(
+      sde, trained, datasets.get_data_inverse_scaler(config))
+  bpds = {}
+  for on in (False, True):
+    set_tf32(on)
+    bpd, _, nfe = lik(trained, data, None, epsilon=eps_fixed)
+    bpds[on] = (bpd.double().cpu(), nfe)
+  diff = (bpds[True][0] - bpds[False][0]).abs()
+  say(f"[eval-check] bits/dim of {EVAL_BATCH} images at one probe: TF32 off "
+      f"{bpds[False][0].mean().item():.7f} (NFE {bpds[False][1]}), PyTorch's "
+      f"defaults (cuDNN TF32 {defaults[1]}, matmul TF32 {defaults[0]}) "
+      f"{bpds[True][0].mean().item():.7f} (NFE {bpds[True][1]}): max |diff| "
+      f"{diff.max().item():.3g}, mean diff "
+      f"{(bpds[True][0] - bpds[False][0]).mean().item():.3g} bits/dim")
+  check(all(bool(torch.isfinite(b[0]).all()) for b in bpds.values()),
+        "bits/dim not finite")
+  del trained
+
+  # As a user runs it: PyTorch's default TF32 settings.
+  set_tf32(True)
+  y, eps = probe(DRIFT_BATCH)
+  score_fn = mutils.get_score_fn(sde, model, train=False, continuous=True)
+  t = torch.full((DRIFT_BATCH,), 0.5, device="cuda")
+  with likelihood.frozen(model):
+    aug = likelihood.get_augmented_drift(sde, model, eps)
+    ms = time_ms(torch, lambda: aug(y, 0.5), iters=10)
+    with torch.no_grad():
+      fwd_ms = time_ms(torch, lambda: sde.reverse(
+          score_fn, probability_flow=True).sde(y[0], t)[0], iters=10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      start = time.perf_counter()
+      for _ in range(3):
+        aug(y, 0.5)
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - start) * 1e3 / 3
+    by_kernel = _device_us_by_kernel(prof)
+    busy_ms = sum(by_kernel.values()) / 1e3 / 3
+    attn_ms = {cat: sum(us for name, us in by_kernel.items()
+                        if _kernel_category(name) == cat) / 1e3 / 3
+               for cat in ("attention forward", "attention backward")}
+    say(f"[eval-time] augmented drift (forward + vjp) at batch {DRIFT_BATCH}: "
+        f"{ms:.2f} ms vs the drift's forward alone {fwd_ms:.2f} ms "
+        f"({ms / fwd_ms:.2f}x) ({card_line})")
+    if busy_ms > 0:
+      say(f"[eval-time] profiled: device busy {busy_ms:.2f} ms per "
+          f"evaluation, idle share {1 - busy_ms / ms:.3f} of the unprofiled "
+          f"{ms:.2f} ms ({1 - busy_ms / wall_ms:.3f} of the profiled); "
+          f"attention forward {attn_ms['attention forward']:.3f} ms + "
+          f"backward {attn_ms['attention backward']:.3f} ms = "
+          f"{sum(attn_ms.values()) / busy_ms:.1%} of device time")
+      _report_families("[eval-time]", by_kernel, 3, "evaluation")
+    else:
+      say("[eval-time] profiler: no device time recorded; shares not "
+          "measured")
+    y, eps = probe(DRIFT_BIG_BATCH)
+    aug = likelihood.get_augmented_drift(sde, model, eps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    drift, div = aug(y, 0.5)
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - start) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+  check(bool(torch.isfinite(div).all()) and drift.shape == y[0].shape,
+        "batch-1024 drift evaluation not finite")
+  say(f"[eval-time] one augmented drift evaluation at batch "
+      f"{DRIFT_BIG_BATCH} in chunks of {likelihood.DRIFT_CHUNK}: {big_ms:.1f} "
+      f"ms (first call at this batch), peak max_memory_allocated "
+      f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above "
+      f"the {base / 2 ** 30:.2f} GiB held before it)")
+  (torch.backends.cuda.matmul.allow_tf32,
+   torch.backends.cudnn.allow_tf32) = defaults
 
 
 def main() -> int:
@@ -850,8 +1142,8 @@ def main() -> int:
   phase_forward(torch, attn, config, model)
   phase_grad(torch, attn, config, model)
 
-  # Sampling and training run as a user runs them: PyTorch's default TF32
-  # settings.
+  # Sampling, training and evaluation run as a user runs them: PyTorch's
+  # default TF32 settings.
   (torch.backends.cuda.matmul.allow_tf32,
    torch.backends.cudnn.allow_tf32) = defaults
   launches = phase_sample(torch, attn, config, model, card_line)
@@ -861,11 +1153,14 @@ def main() -> int:
   check(profile_launches == ATTN_PER_FORWARD * PROFILE_SCALES * 2 * 3,
         f"{profile_launches} kernel launches in 3 sampler runs of "
         f"{PROFILE_SCALES * 2} NFE")
-  del model
   act.fused_leaky_relu_launches = act.fused_leaky_relu_backward_launches = 0
-  train_fwd, train_bwd = phase_train(torch, attn, card_line)
-  act_launches = (act.fused_leaky_relu_launches,
-                  act.fused_leaky_relu_backward_launches)
+  with tempfile.TemporaryDirectory() as workdir:
+    train_fwd, train_bwd = phase_train(torch, attn, card_line, workdir)
+    eval_fwd, eval_bwd = phase_eval(torch, attn, workdir, card_line)
+    act_launches = (act.fused_leaky_relu_launches,
+                    act.fused_leaky_relu_backward_launches)
+    phase_eval_checks(torch, attn, config, model, workdir, card_line)
+  del model
   # The card's machine has jax installed, so an import of it would not fail;
   # nor would one of the JAX package, which sits beside the port.
   leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -875,10 +1170,11 @@ def main() -> int:
 
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
-       launches + train_fwd, record),
-      ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD, train_bwd,
-       record_bwd),
-      # On no model's path: the sample and train runs launch it 0 times.
+       launches + train_fwd + eval_fwd, record),
+      ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
+       train_bwd + eval_bwd, record_bwd),
+      # On no model's path: the sample, train and eval runs launch it 0
+      # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],
        record_act),
       ("fused_leaky_relu_backward", ACT_SOURCE, TPU_ACT, act_launches[1],

@@ -38,6 +38,10 @@ def meta_path(workdir: str) -> str:
   return os.path.join(workdir, "checkpoints-meta", "checkpoint.pth")
 
 
+def has_numbered(workdir: str, step: int) -> bool:
+  return os.path.isfile(numbered_path(workdir, step))
+
+
 def latest_numbered(workdir: str) -> Optional[int]:
   """Largest N of ``checkpoints/checkpoint_N.pth``, or None."""
   ckpt_dir = os.path.join(workdir, "checkpoints")
@@ -150,6 +154,17 @@ def restore_train_state(path: str, state: dict) -> int:
   if device.type == "cuda":
     torch.cuda.set_rng_state(rng["torch_cuda"], device)
   return state["step"]
+
+
+def restore_model_and_ema(path: str, model: torch.nn.Module, ema) -> int:
+  """Load ``path``'s model weights into ``model`` and its EMA state into
+  ``ema`` (a ``models.ema.ExponentialMovingAverage``), as evaluation needs
+  them: the optimizer and generator states are not read, so any
+  reference-schema checkpoint serves. Returns the step."""
+  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  _load_model_state(ckpt, model, path)
+  ema.load_state_dict(ckpt["ema"])
+  return int(ckpt["step"])
 
 
 def restore_ema(path: str, model: torch.nn.Module) -> int:

@@ -1,7 +1,7 @@
-"""Training data of the port: numpy batches in [0, 1], NHWC float32.
+"""Data of the port: numpy batches in [0, 1], NHWC float32.
 
-The part of score_sde_pytorch_tpu/datasets.py that the port's train path
-reads, copied so that the port imports nothing of the JAX package: the data
+The part of score_sde_pytorch_tpu/datasets.py that the port's train and
+eval paths read, copied so that the port imports nothing of the JAX package: the data
 scalers (JAX datasets.py:37-50), the in-memory sources (synthetic images
 when ``data.data_dir`` is empty, CIFAR-10 pickle batches, an ``.npz`` of
 uint8 images; :87-113, :242-249), and the numpy batch iterator with its
@@ -114,7 +114,7 @@ class DatasetIterator:
 
   Yields float32 NHWC batches in [0,1]: optional horizontal flip (train
   only) and uniform dequantization ``(u + 255·x)/256``; the remainder of an
-  epoch is dropped."""
+  epoch is dropped, so an epoch is ``batches_per_epoch`` batches."""
 
   def __init__(self, images: Array, batch_size: int, *, random_flip: bool,
                uniform_dequantization: bool, shuffle: bool, seed: int):
@@ -125,6 +125,7 @@ class DatasetIterator:
     self.uniform_dequantization = uniform_dequantization
     self.shuffle = shuffle
     self.seed = seed
+    self.batches_per_epoch = images.shape[0] // batch_size
     self._it = _Prefetcher(self._batches)
 
   def _batches(self):
@@ -152,9 +153,14 @@ class DatasetIterator:
     return next(self._it)
 
 
-def get_dataset(config):
-  """``(train_iter, eval_iter)`` of one process, both of
-  ``training.batch_size``.
+def get_dataset(config, *, uniform_dequantization: bool = False,
+                evaluation: bool = False):
+  """``(train_iter, eval_iter)`` of one process (JAX datasets.py:485-530).
+
+  Batches are ``training.batch_size`` images, or ``eval.batch_size`` with
+  ``evaluation``; ``uniform_dequantization`` turns dequantization on
+  whatever the config says (the bits/dim stage asks for it). Each iterator
+  has ``batches_per_epoch``.
 
   ``config.data.loader_backend`` may be absent, 'auto' or 'python'; the
   port has only the numpy iterator, so 'native' raises. The seeds and the
@@ -163,8 +169,9 @@ def get_dataset(config):
     raise NotImplementedError(
         f"data.loader_backend={config.data.loader_backend!r}: the native "
         "loader is not ported; see ROADMAP.md queue 1")
-  batch_size = config.training.batch_size
-  dequant = config.data.uniform_dequantization
+  batch_size = (config.eval.batch_size if evaluation
+                else config.training.batch_size)
+  dequant = uniform_dequantization or config.data.uniform_dequantization
   seed = config.seed
   train_it = DatasetIterator(
       load_raw_dataset(config, "train"), batch_size,

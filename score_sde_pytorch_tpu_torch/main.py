@@ -2,14 +2,17 @@
 
     python -m score_sde_pytorch_tpu_torch.main \\
         --config score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py \\
-        --workdir RUN_DIR --mode train|sample [--num_samples N] \\
-        [--checkpoint N] [--device cuda|cpu] [--config.section.key=value ...]
+        --workdir RUN_DIR --mode train|eval|sample [--eval_folder eval] \\
+        [--num_samples N] [--checkpoint N] [--device cuda|cpu] \\
+        [--config.section.key=value ...]
 
 The flags are those of the JAX package's ``main.py``. They are parsed with
 argparse: the JAX CLI's ``ml_collections.config_flags`` is not installed on
-every machine the port runs on. ``--mode train`` and ``--mode sample`` are
-the ported pipelines; ``eval`` raises. The device is ``cuda`` unless
-``--device cpu`` is given; there is no silent CPU fallback.
+every machine the port runs on. ``--mode train`` trains, ``--mode eval``
+scores the numbered checkpoints (eval loss, bits/dim, samples with
+FID/IS/KID; ``run_lib.evaluate``) and ``--mode sample`` generates from one
+checkpoint. The device is ``cuda`` unless ``--device cpu`` is given; there
+is no silent CPU fallback.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ def parse_args(argv: Sequence[str]):
   parser.add_argument("--workdir", required=True, help="work directory")
   parser.add_argument("--mode", required=True,
                       choices=["train", "eval", "sample"])
+  parser.add_argument("--eval_folder", default="eval",
+                      help="folder under workdir for --mode eval outputs")
   parser.add_argument("--sample_folder", default="generated",
                       help="folder under workdir for --mode sample outputs")
   parser.add_argument("--checkpoint", type=int, default=-1,
@@ -50,12 +55,9 @@ def parse_args(argv: Sequence[str]):
 
 def main(argv: Optional[Sequence[str]] = None):
   """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns what the
-  mode's pipeline returns (for ``train``, the logged losses; for
-  ``sample``, the per-round records)."""
+  mode's pipeline returns (for ``train``, the logged losses; for ``eval``,
+  the per-checkpoint records; for ``sample``, the per-round records)."""
   args, overrides = parse_args(sys.argv[1:] if argv is None else list(argv))
-  if args.mode == "eval":
-    raise NotImplementedError(
-        "--mode eval is not ported yet; see ROADMAP.md queue 1 item 12")
   if args.device == "cuda" and not torch.cuda.is_available():
     raise RuntimeError("--device cuda, but torch sees no CUDA device; pass "
                        "--device cpu to run on the CPU")
@@ -77,6 +79,9 @@ def main(argv: Optional[Sequence[str]] = None):
   try:
     if args.mode == "train":
       return run_lib.train(config, args.workdir, device=args.device)
+    if args.mode == "eval":
+      return run_lib.evaluate(config, args.workdir, args.eval_folder,
+                              device=args.device)
     return run_lib.sample(config, args.workdir, args.sample_folder,
                           checkpoint=args.checkpoint,
                           num_samples=args.num_samples, device=args.device)

@@ -1,8 +1,9 @@
-"""Pipelines of the port: training, and sampling from a checkpoint.
+"""Pipelines of the port: training, evaluation, and sampling from a
+checkpoint.
 
-Counterpart of score_sde_pytorch_tpu/run_lib.py:66-248 (``train``) and
-:467-588 (``sample``). Evaluation is not ported yet (ROADMAP.md queue 1
-item 12).
+Counterpart of score_sde_pytorch_tpu/run_lib.py:66-248 (``train``),
+:251-464 (``evaluate``) and :467-588 (``sample``). One process; the JAX
+package's multi-host paths are ROADMAP.md queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ import numpy as np
 import torch
 
 from score_sde_pytorch_tpu_torch import checkpoint as ckpt_lib
-from score_sde_pytorch_tpu_torch import datasets, losses, sampling
+from score_sde_pytorch_tpu_torch import datasets, evaluation, losses, sampling
+from score_sde_pytorch_tpu_torch import likelihood as likelihood_lib
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
+from score_sde_pytorch_tpu_torch.models.ema import ExponentialMovingAverage
 from score_sde_pytorch_tpu_torch.utils.image import make_grid, save_image
 
 try:
@@ -114,6 +117,13 @@ def sample(config, workdir: str, sample_folder: str = "generated",
   return rounds
 
 
+def _to_device(batch: np.ndarray, scaler, device: torch.device
+               ) -> torch.Tensor:
+  """A numpy NHWC batch, scaled, as an NCHW tensor on ``device``."""
+  return torch.from_numpy(scaler(batch)).to(device).permute(
+      0, 3, 1, 2).contiguous()
+
+
 def _seeded_generator(device: torch.device, seed: int, step: int,
                       stream: int) -> torch.Generator:
   """A generator that depends only on (seed, step, stream): the eval loss
@@ -183,8 +193,7 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
       losses.get_step_fn(sde, train=False, **step_kwargs), n_jitted)
 
   def next_batches(it):
-    return [torch.from_numpy(scaler(next(it))).to(device).permute(
-        0, 3, 1, 2).contiguous() for _ in range(n_jitted)]
+    return [_to_device(next(it), scaler, device) for _ in range(n_jitted)]
 
   if tcfg.snapshot_sampling:
     sampling_shape = (tcfg.batch_size, config.data.image_size,
@@ -246,3 +255,189 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
   writer.flush()
   return {"initial_step": initial_step, "step": step,
           "train_losses": train_losses, "eval_losses": eval_losses}
+
+
+# The checkpoint-wait loop of evaluate (JAX run_lib.py:354-362).
+WAIT_SECONDS = 60
+MAX_WAITS = 600
+
+
+def _epoch_batches(it) -> int:
+  """Exact number of batches in one pass over a finite split."""
+  n = getattr(it, "batches_per_epoch", None)
+  if n is None:
+    raise ValueError(
+        "eval needs an iterator with a known epoch size; the data source "
+        "does not expose one (batches_per_epoch is None).")
+  return max(1, int(n))
+
+
+def _wait_for_checkpoint(workdir: str, ckpt: int) -> None:
+  waiting = 0
+  while not ckpt_lib.has_numbered(workdir, ckpt):
+    if waiting == 0:
+      logging.warning("Waiting for checkpoint_%d ...", ckpt)
+    time.sleep(WAIT_SECONDS)
+    waiting += 1
+    if waiting > MAX_WAITS:
+      raise FileNotFoundError(f"checkpoint_{ckpt} never appeared")
+
+
+def _timed(device: torch.device, fn, *args):
+  """``(fn(*args), seconds)``, the device synced at both ends."""
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  start = time.perf_counter()
+  out = fn(*args)
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  return out, time.perf_counter() - start
+
+
+def evaluate(config, workdir: str, eval_folder: str = "eval",
+             device: str = "cuda") -> list:
+  """Evaluate every numbered checkpoint from ``eval.begin_ckpt`` to
+  ``eval.end_ckpt`` (JAX run_lib.py:261-464), waiting for each to appear.
+
+  Three stages, each behind its ``config.eval.enable_*`` flag, write under
+  ``workdir/<eval_folder>/`` the JAX package's files and keys:
+
+  - loss: the eval loss at the EMA weights (``losses.get_step_fn(train=
+    False)``) over one pass of the eval split: ``ckpt_<N>_loss.npz``
+    (``all_losses``, ``mean_loss``);
+  - bpd: bits/dim through the probability-flow ODE over the
+    ``eval.bpd_dataset`` split, dequantized, the test split 5 times:
+    ``<split>_ckpt_<N>_bpd.npz`` (``bpd``);
+  - sampling: ``ceil(num_samples / batch_size)`` rounds of the configured
+    sampler, whole batches (no trim, as the JAX package), each
+    ``ckpt_<N>_samples_<r>.npz`` (uint8 NHWC ``samples``) and, with
+    Inception weights, ``ckpt_<N>_statistics_<r>.npz`` (``pool_3``,
+    ``logits``); then ``report_<N>.npz`` (``inception_score``, ``fid``,
+    ``kid``, as far as the weights and the dataset statistics allow).
+    Non-finite samples raise RuntimeError.
+
+  Returns one record per checkpoint with the stages' numbers and times
+  (``bpd_nfe`` and ``bpd_seconds`` per batch, ``sampling_nfe`` and
+  ``sampling_seconds`` per round, ``inception_seconds``)."""
+  device = torch.device(device)
+  eval_dir = os.path.join(workdir, eval_folder)
+  os.makedirs(eval_dir, exist_ok=True)
+
+  model = mutils.create_model(config, device,
+                              torch.Generator().manual_seed(config.seed))
+  ema = ExponentialMovingAverage(model.parameters(),
+                                 decay=config.model.ema_rate)
+  state = {"model": model, "ema": ema}
+  generator = torch.Generator(device=device).manual_seed(config.seed + 1)
+
+  sde = sde_lib.build_sde(config)
+  scaler = datasets.get_data_scaler(config)
+  inverse_scaler = datasets.get_data_inverse_scaler(config)
+  _, eval_iter = datasets.get_dataset(config, evaluation=True)
+  tcfg, ecfg = config.training, config.eval
+  eval_step = losses.get_step_fn(
+      sde, train=False, reduce_mean=tcfg.reduce_mean,
+      continuous=tcfg.continuous,
+      likelihood_weighting=tcfg.likelihood_weighting)
+
+  if ecfg.enable_bpd:
+    likelihood_fn = likelihood_lib.get_likelihood_fn(sde, model,
+                                                     inverse_scaler)
+    bpd_train_iter, bpd_test_iter = datasets.get_dataset(
+        config, evaluation=True, uniform_dequantization=True)
+    test_split = ecfg.bpd_dataset.lower() == "test"
+    bpd_iter = bpd_test_iter if test_split else bpd_train_iter
+    # The test split 5 times over for tighter intervals (reference
+    # run_lib.py:236-242).
+    bpd_num_repeats = 5 if test_split else 1
+
+  if ecfg.enable_sampling:
+    sampling_shape = (ecfg.batch_size, config.data.image_size,
+                      config.data.image_size, config.data.num_channels)
+    sampling_fn = sampling.get_sampling_fn(config, sde, model, sampling_shape,
+                                           inverse_scaler, device=device)
+
+  records = []
+  for ckpt in range(ecfg.begin_ckpt, ecfg.end_ckpt + 1):
+    _wait_for_checkpoint(workdir, ckpt)
+    step = ckpt_lib.restore_model_and_ema(
+        ckpt_lib.numbered_path(workdir, ckpt), model, ema)
+    logging.info("Evaluating checkpoint_%d (step %d) on %s.", ckpt, step,
+                 device)
+    record = {"ckpt": ckpt, "step": step}
+
+    if ecfg.enable_loss:
+      all_losses = [float(eval_step(
+          state, _to_device(next(eval_iter), scaler, device), generator))
+                    for _ in range(_epoch_batches(eval_iter))]
+      np.savez_compressed(os.path.join(eval_dir, f"ckpt_{ckpt}_loss.npz"),
+                          all_losses=np.asarray(all_losses),
+                          mean_loss=np.mean(all_losses))
+      record["mean_loss"] = float(np.mean(all_losses))
+      logging.info("ckpt %d: mean eval loss %.5e", ckpt, record["mean_loss"])
+
+    # The likelihood and the sampler run at the EMA weights.
+    ema.copy_to(model.parameters())
+
+    if ecfg.enable_bpd:
+      bpds, record["bpd_nfe"], record["bpd_seconds"] = [], [], []
+      for _ in range(_epoch_batches(bpd_iter) * bpd_num_repeats):
+        (bpd, _, nfe), seconds = _timed(
+            device, likelihood_fn, model,
+            _to_device(next(bpd_iter), scaler, device), generator)
+        bpds.append(bpd.cpu().numpy())
+        record["bpd_nfe"].append(nfe)
+        record["bpd_seconds"].append(seconds)
+      bpds = np.concatenate(bpds)
+      np.savez_compressed(
+          os.path.join(eval_dir, f"{ecfg.bpd_dataset}_ckpt_{ckpt}_bpd.npz"),
+          bpd=bpds.astype(np.float64))  # the JAX package saves a float list
+      record["bpd"] = float(np.mean(bpds))
+      logging.info("ckpt %d: mean bpd %.4f (NFE %s)", ckpt, record["bpd"],
+                   record["bpd_nfe"])
+
+    if ecfg.enable_sampling:
+      num_rounds = (ecfg.num_samples - 1) // ecfg.batch_size + 1
+      all_pools, all_logits = [], []
+      record["sampling_nfe"], record["sampling_seconds"] = [], []
+      record["inception_seconds"] = []
+      for r in range(num_rounds):
+        (samples, nfe), seconds = _timed(device, sampling_fn, generator)
+        samples_np = samples.cpu().numpy()
+        record["sampling_nfe"].append(int(nfe))
+        record["sampling_seconds"].append(seconds)
+        if not np.isfinite(samples_np).all():
+          # The ODE sampler returns all-NaN when its solver does not
+          # converge; clipping to uint8 would turn that into black images
+          # and a finite, meaningless FID.
+          raise RuntimeError(
+              f"non-finite samples at ckpt {ckpt} round {r} "
+              f"(sampler={config.sampling.method}; ODE non-convergence?)")
+        samples_u8 = np.clip(samples_np * 255.0, 0, 255).astype(np.uint8)
+        np.savez_compressed(
+            os.path.join(eval_dir, f"ckpt_{ckpt}_samples_{r}.npz"),
+            samples=samples_u8)
+        stats, seconds = _timed(device, evaluation.run_inception, samples_u8,
+                                config, device)
+        if stats is not None:
+          record["inception_seconds"].append(seconds)
+          np.savez_compressed(
+              os.path.join(eval_dir, f"ckpt_{ckpt}_statistics_{r}.npz"),
+              **stats)
+          all_pools.append(stats["pool_3"])
+          if "logits" in stats:
+            all_logits.append(stats["logits"])
+        logging.info("ckpt %d round %d/%d: %d samples (NFE %d, %.3f s)", ckpt,
+                     r + 1, num_rounds, samples_u8.shape[0], nfe,
+                     record["sampling_seconds"][-1])
+      if all_pools:
+        scores = evaluation.compute_scores(
+            np.concatenate(all_pools), config,
+            logits=np.concatenate(all_logits) if all_logits else None,
+            device=device)
+        np.savez_compressed(os.path.join(eval_dir, f"report_{ckpt}.npz"),
+                            **scores)
+        record["scores"] = scores
+        logging.info("ckpt %d: %s", ckpt, scores)
+    records.append(record)
+  return records

@@ -1,11 +1,11 @@
-"""Predictor–corrector sampling (PyTorch).
+"""Predictor–corrector and probability-flow ODE sampling (PyTorch).
 
-Counterpart of score_sde_pytorch_tpu/sampling.py:91-103, 164-191, 237-285
+Counterpart of score_sde_pytorch_tpu/sampling.py:91-103, 164-191, 237-335
 and 480-525. Update functions take their Gaussian noise as an argument
 (``update_fn(x, t, z)``); the PC loop draws it from an explicit
 ``torch.Generator`` through :func:`normal`, so tests can inject the noise the
 JAX package sees. The loop is a Python loop of eager steps (the JAX package
-scans it inside one jit). States are NCHW; the sampler returns NHWC, as the
+scans it inside one jit). States are NCHW; the samplers return NHWC, as the
 JAX package does.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from score_sde_pytorch_tpu_torch import ode as ode_lib
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.sde import batch_mul
@@ -159,16 +160,68 @@ def get_pc_sampler(sde, model, shape, predictor, corrector,
   return pc_sampler
 
 
+def get_ode_sampler(sde, model, shape, inverse_scaler, denoise: bool = False,
+                    rtol: float = 1e-5, atol: float = 1e-5, eps: float = 1e-3,
+                    max_steps: int = 10000, device=None):
+  """Probability-flow ODE sampler (JAX sampling.py:288-327) through the
+  adaptive RK45 of :mod:`score_sde_pytorch_tpu_torch.ode`, from ``T`` to
+  ``eps``.
+
+  Returns ``sampler(generator, z=None) -> (samples, nfe)``: ``z`` is the
+  NHWC state at ``T`` (None draws it from the prior), the samples are NHWC.
+  They are all NaN unless the solver reached ``eps``. ``denoise`` adds one
+  reverse-diffusion step at ``eps`` (its mean; one more NFE).
+  ``device=None`` takes the device of the model's parameters."""
+  b, h, w, c = shape
+  state_shape = (b, c, h, w)
+  device = torch.device(device) if device is not None else next(
+      model.parameters()).device
+
+  def ode_sampler(generator: torch.Generator,
+                  z: Optional[torch.Tensor] = None):
+    score_fn = mutils.get_score_fn(sde, model, train=False, continuous=True)
+    rsde = sde.reverse(score_fn, probability_flow=True)
+    with torch.no_grad():
+      x0 = (sde.prior_sampling(state_shape, generator, device) if z is None
+            else z.to(device).permute(0, 3, 1, 2).contiguous())
+
+      def drift_fn(x, t_scalar: float):
+        return rsde.sde(x, torch.full((b,), t_scalar, device=device))[0]
+
+      x, nfe, status = ode_lib.odeint_rk45(drift_fn, x0, sde.T, eps,
+                                           rtol=rtol, atol=atol,
+                                           max_steps=max_steps)
+      if status != ode_lib.STATUS_OK:
+        x = torch.full_like(x, float("nan"))
+      if denoise:
+        rd = reverse_diffusion_predictor(sde, score_fn, probability_flow=False)
+        _, x = rd(x, torch.full((b,), eps, device=device), torch.zeros_like(x))
+        nfe += 1
+      out = inverse_scaler(x)
+    return out.permute(0, 2, 3, 1), nfe
+
+  return ode_sampler
+
+
 def get_sampling_fn(config, sde, model, shape, inverse_scaler,
                     eps: Optional[float] = None, device=None):
-  """Sampler named by ``config.sampling.method``; only ``pc`` is ported."""
+  """Sampler named by ``config.sampling.method``: ``pc`` or ``ode`` (JAX
+  sampling.py:480-525). The ODE's tolerances and step limit come from
+  ``config.sampling.{rtol,atol,ode_max_steps}``."""
   if eps is None:
     eps = sde_lib.sampling_eps(config)
   method = config.sampling.method.lower()
+  if method == "ode":
+    return get_ode_sampler(
+        sde, model, shape, inverse_scaler,
+        denoise=config.sampling.noise_removal,
+        rtol=config.sampling.get("rtol", 1e-5),
+        atol=config.sampling.get("atol", 1e-5), eps=eps,
+        max_steps=config.sampling.get("ode_max_steps", 10000), device=device)
   if method != "pc":
     raise NotImplementedError(
-        f"sampler {method!r} is not ported yet (only 'pc'); see ROADMAP.md "
-        "queue 1 item 8")
+        f"sampler {method!r} is not ported yet (only 'pc' and 'ode'); see "
+        "ROADMAP.md queue 1 item 8")
   return get_pc_sampler(
       sde, model, shape, get_predictor(config.sampling.predictor.lower()),
       get_corrector(config.sampling.corrector.lower()), inverse_scaler,

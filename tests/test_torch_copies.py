@@ -117,6 +117,52 @@ def test_batches_equal_the_jax_python_backend(source, dequantize, tmp_path):
   assert np.array_equal(next(replayed), next(fresh))
 
 
+@pytest.mark.parametrize("source", ["synthetic", "npz"])
+@pytest.mark.parametrize("dequantize", [False, True])
+def test_eval_batches_equal_the_jax_python_backend(source, dequantize,
+                                                   tmp_path):
+  """``get_dataset(evaluation=True, uniform_dequantization=...)``, as the
+  eval loss and bits/dim stages build it: eval.batch_size batches, the
+  dequantization flag OR'ed with the config's, the same epoch sizes, and
+  the same batches bit for bit over more than one epoch."""
+  rng = np.random.default_rng(3)
+  overrides = ["training.batch_size=8", "eval.batch_size=6"]
+  if source == "npz":
+    overrides += ["data.image_size=16", "data.dataset=NPZ",
+                  f"data.data_dir={write_npz(tmp_path / 'npz', rng)}"]
+  else:
+    overrides += ["data.image_size=8"]
+  config = configs.load_config(FLAGSHIP, overrides)
+  config.data.loader_backend = "python"
+  want = jax_datasets.get_dataset(config, evaluation=True,
+                                  uniform_dequantization=dequantize,
+                                  process_index=0, process_count=1)
+  got = datasets.get_dataset(config, evaluation=True,
+                             uniform_dequantization=dequantize)
+  for got_it, want_it in zip(got, want, strict=True):
+    assert got_it.batches_per_epoch == want_it.batches_per_epoch
+    assert got_it.batch_size == 6
+    for _ in range(want_it.batches_per_epoch + 2):
+      a, b = next(got_it), next(want_it)
+      assert a.shape[0] == 6 and np.array_equal(a, b)
+  jax_run_lib = importlib.import_module("score_sde_pytorch_tpu.run_lib")
+  from score_sde_pytorch_tpu_torch import run_lib
+  for it in got:
+    assert run_lib._epoch_batches(it) == jax_run_lib._epoch_batches(it)
+  with pytest.raises(ValueError, match="epoch size"):
+    run_lib._epoch_batches(object())
+
+
+def test_train_batches_keep_the_training_batch_size():
+  config = configs.load_config(FLAGSHIP, ["training.batch_size=8",
+                                          "eval.batch_size=6",
+                                          "data.image_size=8"])
+  train_it, eval_it = datasets.get_dataset(config)
+  assert train_it.batch_size == eval_it.batch_size == 8
+  assert (train_it.batches_per_epoch, eval_it.batches_per_epoch) == (64, 16)
+  assert not train_it.uniform_dequantization
+
+
 @pytest.mark.parametrize("centered", [False, True])
 def test_scalers_equal_the_jax_packages(centered):
   config = configs.load_config(FLAGSHIP, [f"data.centered={centered}"])

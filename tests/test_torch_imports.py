@@ -39,6 +39,10 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.losses",
     "score_sde_pytorch_tpu_torch.interop",
     "score_sde_pytorch_tpu_torch.sampling",
+    "score_sde_pytorch_tpu_torch.ode",
+    "score_sde_pytorch_tpu_torch.likelihood",
+    "score_sde_pytorch_tpu_torch.inception",
+    "score_sde_pytorch_tpu_torch.evaluation",
     "score_sde_pytorch_tpu_torch.checkpoint",
     "score_sde_pytorch_tpu_torch.run_lib",
     "score_sde_pytorch_tpu_torch.main",
@@ -47,10 +51,10 @@ BLOCK = "import sys\nfor _m in {!r}: sys.modules[_m] = None\n"
 JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "orbax", "score_sde_pytorch_tpu")
 
 
-def run_child(code: str, blocked=JAX_NAMES):
+def run_child(code: str, blocked=JAX_NAMES, **env):
   proc = subprocess.run(
       [sys.executable, "-c", BLOCK.format(tuple(blocked)) + code],
-      capture_output=True, text=True, timeout=300, env=cpu_child_env())
+      capture_output=True, text=True, timeout=300, env=cpu_child_env(**env))
   assert proc.returncode == 0, proc.stderr[-3000:]
   return proc.stdout
 
@@ -101,6 +105,58 @@ def test_cli_recipe_runs_with_the_jax_package_blocked(tmp_path):
   for sub in ("checkpoints/checkpoint_2.pth", "samples/iter_4/sample.png",
               "generated/samples_0.npz"):
     assert (tmp_path / sub).is_file(), sub
+
+
+def test_eval_recipe_runs_with_the_jax_package_blocked(tmp_path):
+  """The tiny --mode eval recipe (eval loss, bits/dim, ODE samples,
+  Inception and FID/IS/KID on random weights, a one-batch .npz dataset)
+  from a 2-step train, in a child where the JAX package, jax and flax
+  cannot be imported."""
+  tiny = ["--config.model.nf=16", "--config.model.ch_mult=(1,2)",
+          "--config.model.num_res_blocks=1",
+          "--config.model.attn_resolutions=(8,)",
+          "--config.data.image_size=16", "--config.model.num_scales=2"]
+  common = ["--config", str(configs.resolve(FLAGSHIP).resolve()),
+            "--workdir", str(tmp_path / "wd"), "--device", "cpu"] + tiny
+  train = ["--mode", "train", "--config.training.batch_size=4",
+           "--config.training.n_jitted_steps=1",
+           "--config.training.n_iters=2", "--config.training.snapshot_freq=2",
+           "--config.training.snapshot_sampling=False"]
+  evaluate = ["--mode", "eval", "--config.eval.begin_ckpt=1",
+              "--config.eval.end_ckpt=1", "--config.eval.batch_size=4",
+              "--config.eval.enable_bpd=True",
+              "--config.eval.enable_sampling=True",
+              "--config.eval.num_samples=4", "--config.sampling.method=ode",
+              "--config.data.dataset=NPZ",
+              f"--config.data.data_dir={tmp_path / 'data'}"]
+  out = run_child(textwrap.dedent(f"""
+      import os
+      import numpy as np
+      from score_sde_pytorch_tpu_torch import inception, main
+      main.main({common + train!r})
+      os.chdir({str(tmp_path)!r})
+      rng = np.random.default_rng(0)
+      os.makedirs('data')
+      for split in ('train', 'test'):  # one eval batch each
+        np.savez(f'data/{{split}}.npz', images=rng.integers(
+            0, 256, (4, 16, 16, 3), dtype=np.uint8))
+      os.environ['INCEPTION_WEIGHTS_NPZ'] = inception.write_random_npz(
+          'incep.npz')
+      os.makedirs('assets/stats')
+      np.savez('assets/stats/npz_16_stats.npz',
+               pool_3=rng.normal(size=(8, 2048)))
+      (record,) = main.main({common + evaluate!r})
+      assert set(record['scores']) == {{'inception_score', 'fid', 'kid'}}
+      leaked = [m for m, v in sys.modules.items()
+                if v is not None and m.split('.')[0] in {JAX_NAMES!r}]
+      assert not leaked, leaked
+      print('ok')
+      """), OMP_NUM_THREADS=1)  # one torch thread: see tests/torch_threads.py
+  assert out.strip().endswith("ok")
+  for name in ("ckpt_1_loss.npz", "test_ckpt_1_bpd.npz",
+               "ckpt_1_samples_0.npz", "ckpt_1_statistics_0.npz",
+               "report_1.npz"):
+    assert (tmp_path / "wd" / "eval" / name).is_file(), name
 
 
 def test_jax_package_config_paths_load_the_ports_copy():
@@ -159,9 +215,17 @@ def test_unsupported_settings_raise(override):
 
 @pytest.mark.parametrize("mode", ["eval"])
 def test_train_and_eval_modes_raise_naming_roadmap(mode, tmp_path):
+  """--mode eval is ported; a sampler it cannot run yet raises naming
+  ROADMAP before any checkpoint is read."""
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     main.main(["--config", FLAGSHIP, "--workdir", str(tmp_path),
-               "--mode", mode])
+               "--mode", mode, "--device", "cpu",
+               "--config.eval.enable_sampling=True",
+               "--config.sampling.method=heun", "--config.model.nf=16",
+               "--config.model.ch_mult=(1,2)",
+               "--config.model.num_res_blocks=1",
+               "--config.model.attn_resolutions=(8,)",
+               "--config.data.image_size=16"])
 
 
 def test_cuda_device_without_a_card_raises(tmp_path, monkeypatch):

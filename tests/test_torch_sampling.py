@@ -247,7 +247,7 @@ def test_predictor_only_sampling_with_corrector_none():
 def test_unported_samplers_raise_naming_roadmap():
   cfg = tiny_flagship_config()
   model = mutils.create_model(cfg, "cpu", torch.Generator().manual_seed(0))
-  for key, value in (("method", "ode"), ("predictor", "euler_maruyama"),
+  for key, value in (("method", "heun"), ("predictor", "euler_maruyama"),
                      ("corrector", "ald")):
     bad = tiny_flagship_config()
     bad.sampling[key] = value
