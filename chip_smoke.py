@@ -5,7 +5,8 @@ NVIDIA GPU. Run it from the root of a checkout:
     python3 chip_smoke.py
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and imports nothing of
-JAX or of the JAX package. Phases, each of which fails the run if it fails:
+JAX or of the JAX package. Phases, each of which fails the run if it fails
+(about 8 minutes on one H100):
 
 1. the card's name and power limit; the kernels built from
    score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
@@ -52,7 +53,28 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails:
    the card's Inception features against the CPU's; the time of one
    augmented drift evaluation (forward + vjp) against the plain forward,
    the attention kernels' share of its device time, the peak memory of a
-   chunked evaluation at batch 1024, and the bits/dim with TF32 on vs off.
+   chunked evaluation at batch 1024, and the bits/dim with TF32 on vs off;
+10. [vp-forward], [vp-grad] (TF32 off, beside 5 and 6): the full-width
+   DDPM++ of score_sde_pytorch_tpu_torch/configs/vp/
+   cifar10_ddpmpp_continuous.py through the kernels against through the
+   plain attention and the CPU, and a VP and a subVP loss's gradients;
+11. [vp-train], [vp-sample], [vp-eval]: ``main --mode train`` on that
+   config at batch 128 (10 steps, Euler-Maruyama snapshot grid, step time
+   and profile), ``--mode sample`` and ``--mode eval`` (loss, bits/dim) on
+   its checkpoint;
+12. [ddpm]: the full-width DDPM of vp/ddpm/cifar10.py through the kernel
+   against the plain attention (TF32 off), then ``main --mode sample`` with
+   ancestral sampling from its seeded checkpoint;
+13. [samplers]: PC reverse diffusion + Langevin, PC none + ALD, heun and
+   DPM-Solver++ (deterministic and stochastic) on the DDPM++ at batch 64;
+14. [vp-profile]: Euler-Maruyama at batch 64: ms per network evaluation,
+   the idle share and the attention kernel's share of device time.
+
+Network evaluations are counted with a forward hook (the PC sampler's NFE
+is N·(n_steps + 1) whatever the corrector), and every run above holds the
+attention launches to 6 per NCSN++/DDPM++ evaluation and 4 per DDPM
+evaluation, and the backward calls to 6 per train step and per bits/dim
+drift evaluation.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
@@ -60,6 +82,7 @@ card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -73,6 +96,9 @@ from unittest import mock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "score_sde_pytorch_tpu_torch", "configs", "ve",
                         "cifar10_ncsnpp_continuous.py")
+CONFIGS = os.path.join(ROOT, "score_sde_pytorch_tpu_torch", "configs")
+VP_CONFIG = os.path.join(CONFIGS, "vp", "cifar10_ddpmpp_continuous.py")
+DDPM_CONFIG = os.path.join(CONFIGS, "vp", "ddpm", "cifar10.py")
 KERNEL_SOURCE = "score_sde_pytorch_tpu_torch/ops/csrc/flash_attention.cu"
 TPU_KERNEL = "score_sde_pytorch_tpu/ops/attention.py:77"
 ACT_SOURCE = "score_sde_pytorch_tpu_torch/ops/csrc/fused_act.cu"
@@ -82,6 +108,7 @@ SMOKE_SCALES = 100           # cut from 1000 for the smoke's time
 SMOKE_BATCH = 16
 SMOKE_ROUNDS = 2
 ATTN_PER_FORWARD = 6         # 5 blocks at 16x16 and the 4x4 bottleneck
+DDPM_ATTN_PER_FORWARD = 4    # DDPM: 3 blocks at 16x16 and the bottleneck
 # The path's shapes first: sampling (batch 64), training (batch 128), the
 # configs' eval batch (1024), the 4x4 bottleneck, then the 32x32 and
 # ragged shapes of other configs.
@@ -119,6 +146,11 @@ INCEPTION_CHECK = 4          # images through the card's and the CPU's
 INCEPTION_TOL = 1e-4         # of max |pool_3|
 DRIFT_BATCH = 64
 DRIFT_BIG_BATCH = 1024       # the configs' eval.batch_size
+VP_TRAIN_STEPS = 10
+SAMPLERS_BATCH = 64
+SAMPLERS_SCALES = 25         # discrete VP rules need num_scales > beta_max
+FLOW_STEPS = 10              # heun and dpmpp steps
+VP_PROFILE_SCALES = 20       # Euler-Maruyama: 20 network evaluations
 
 
 def check(ok: bool, what: str) -> None:
@@ -128,6 +160,25 @@ def check(ok: bool, what: str) -> None:
 
 def say(*parts) -> None:
   print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def network_evals(torch):
+  """Counts score-network evaluations (forwards of an NCSN++ or a DDPM)
+  while it is open, as ``count[0]``: the real evaluations behind a
+  sampler's reported NFE."""
+  from score_sde_pytorch_tpu_torch.models import ddpm, ncsnpp
+  count = [0]
+
+  def hook(module, args):
+    if isinstance(module, (ncsnpp.NCSNpp, ddpm.DDPM)):
+      count[0] += 1
+
+  handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+  try:
+    yield count
+  finally:
+    handle.remove()
 
 
 def card() -> str:
@@ -316,13 +367,25 @@ def unit_gain_(torch, model, layers, seed: int) -> None:
         p.copy_(value)
 
 
-def phase_forward(torch, attn, config, model) -> None:
+def _labels(config, t):
+  """The network's labels at times ``t``, as the continuous score function
+  gives them: sigma(t) for VE, t·999 for VP/subVP."""
   from score_sde_pytorch_tpu_torch import sde as sde_lib
+  sde = sde_lib.build_sde(config)
+  if isinstance(sde, sde_lib.VESDE):
+    return sde.sigma_t(t)
+  return t * 999
+
+
+def phase_forward(torch, attn, config, model, tag: str = "[forward]",
+                  per_forward: int = ATTN_PER_FORWARD) -> None:
+  """The full-width forward through the kernel against through the plain
+  attention and against the CPU, and its attention launches."""
   gen = torch.Generator(device="cuda").manual_seed(1)
   size = config.data.image_size
   x = torch.rand(SMOKE_BATCH, 3, size, size, device="cuda", generator=gen)
   t = torch.rand(SMOKE_BATCH, device="cuda", generator=gen)
-  labels = sde_lib.build_sde(config).sigma_t(t)
+  labels = _labels(config, t)
   with torch.no_grad():
     before = attn.flash_attention_launches
     through_kernel = model(x, labels)
@@ -332,18 +395,18 @@ def phase_forward(torch, attn, config, model) -> None:
       through_plain = model(x, labels)
       on_cpu = model.to("cpu")(x[:2].cpu(), labels[:2].cpu())
       model.to("cuda")
-  check(launches == ATTN_PER_FORWARD,
-        f"{launches} kernel launches in one forward, want {ATTN_PER_FORWARD}")
-  check(bool(torch.isfinite(through_kernel).all()), "forward not finite")
+  check(launches == per_forward,
+        f"{tag} {launches} kernel launches in one forward, want {per_forward}")
+  check(bool(torch.isfinite(through_kernel).all()), f"{tag} not finite")
   scale = through_plain.abs().max().item()
   rel = (through_kernel - through_plain).abs().max().item() / scale
   rel_cpu = ((through_kernel[:2].cpu() - on_cpu).abs().max().item()
              / on_cpu.abs().max().item())
-  say(f"[forward] full-width NCSN++ B={SMOKE_BATCH}: max|out| {scale:.4g}, "
-      f"kernel vs plain rel err {rel:.3g}, card vs CPU rel err {rel_cpu:.3g} "
-      f"({launches} kernel launches)")
-  check(rel <= FORWARD_RTOL, f"kernel vs plain forward rel err {rel:.3g}")
-  check(rel_cpu <= FORWARD_RTOL, f"card vs CPU forward rel err {rel_cpu:.3g}")
+  say(f"{tag} full-width {config.model.name} B={SMOKE_BATCH}: max|out| "
+      f"{scale:.4g}, kernel vs plain rel err {rel:.3g}, card vs CPU rel err "
+      f"{rel_cpu:.3g} ({launches} kernel launches)")
+  check(rel <= FORWARD_RTOL, f"{tag} kernel vs plain rel err {rel:.3g}")
+  check(rel_cpu <= FORWARD_RTOL, f"{tag} card vs CPU rel err {rel_cpu:.3g}")
 
 
 def phase_sample(torch, attn, config, model, card_line: str) -> int:
@@ -549,13 +612,16 @@ def phase_fused_act(torch, act) -> tuple:
   return tuple(records)
 
 
-def phase_grad(torch, attn, config, model) -> None:
+def phase_grad(torch, attn, config, model, sde=None,
+               tag: str = "[grad]") -> None:
   """Loss and parameter gradients of the full-width model with injected t
-  and z (dropout off): through the kernels vs through the plain attention,
-  and the loss on the card vs on the CPU."""
+  and z (dropout off), for ``sde`` (default: the config's): through the
+  kernels vs through the plain attention, and the loss on the card vs on
+  the CPU."""
   from score_sde_pytorch_tpu_torch import losses, sde as sde_lib
+  sde = sde or sde_lib.build_sde(config)
   core = losses.get_sde_loss_core(
-      sde_lib.build_sde(config), train=False,
+      sde, train=False,
       reduce_mean=config.training.reduce_mean,
       likelihood_weighting=config.training.likelihood_weighting)
   gen = torch.Generator(device="cuda").manual_seed(4)
@@ -584,15 +650,17 @@ def phase_grad(torch, attn, config, model) -> None:
   rel = max((g - w).abs().max().item() for g, w in zip(grads, grads_plain))
   rel /= scale
   rel_cpu = abs(loss - loss_cpu) / abs(loss_cpu)
-  say(f"[grad] full-width NCSN++ B={GRAD_BATCH}: loss {loss:.6g} (plain "
+  say(f"{tag} full-width {config.model.name}, {type(sde).__name__} loss, "
+      f"B={GRAD_BATCH}: loss {loss:.6g} (plain "
       f"attention {loss_plain:.6g}, CPU {loss_cpu:.6g}); max|dg|/max|g| "
       f"kernel vs plain {rel:.3g} over {len(params)} tensors; loss card vs "
       f"CPU rel {rel_cpu:.3g}; {launches} backward calls")
   check(launches == ATTN_PER_FORWARD,
-        f"{launches} backward calls in one step, want {ATTN_PER_FORWARD}")
+        f"{tag} {launches} backward calls in one step, want "
+        f"{ATTN_PER_FORWARD}")
   check(math.isfinite(loss) and rel <= GRAD_RTOL,
-        f"gradients kernel vs plain: {rel:.3g} > {GRAD_RTOL}")
-  check(rel_cpu <= LOSS_RTOL, f"loss card vs CPU rel {rel_cpu:.3g}")
+        f"{tag} gradients kernel vs plain: {rel:.3g} > {GRAD_RTOL}")
+  check(rel_cpu <= LOSS_RTOL, f"{tag} loss card vs CPU rel {rel_cpu:.3g}")
 
 
 def _ckpt_checks(torch, path, step, initial, ema_rate) -> None:
@@ -662,28 +730,36 @@ def _report_families(tag: str, by_kernel: dict, count: int,
     say(f"{tag}     {us / 1e3 / count:8.3f} ms/{unit}  {name[:110]}")
 
 
-def phase_sample_profile(torch, model, card_line: str) -> None:
-  """The PC sampler at batch 64 over PROFILE_SCALES steps (2 NFE each), as
+def phase_sample_profile(torch, model, card_line: str, config_path=FLAGSHIP,
+                         scales: int = PROFILE_SCALES,
+                         tag: str = "[sample-profile]") -> int:
+  """The config's sampler at batch 64 over ``scales`` steps, as
   ``run_lib.sample`` builds it with no device given (the model's device):
-  ms per NFE unprofiled, then a profiled run for the device's busy time,
-  the attention kernel's share of it and the idle share."""
+  ms per network evaluation unprofiled, then a profiled run for the
+  device's busy time, the attention kernel's share of it and the idle
+  share. Evaluations are counted, not read off the sampler's NFE (the PC
+  sampler reports N·(n_steps + 1) whatever its corrector). Returns the
+  evaluations of one run."""
   from torch.profiler import ProfilerActivity, profile
   from score_sde_pytorch_tpu_torch import configs, datasets, sampling
   from score_sde_pytorch_tpu_torch import sde as sde_lib
-  config = configs.load_config(FLAGSHIP, [f"model.num_scales={PROFILE_SCALES}"])
+  config = configs.load_config(config_path, [f"model.num_scales={scales}"])
   size = config.data.image_size
   sampler = sampling.get_sampling_fn(
       config, sde_lib.build_sde(config), model,
       (PROFILE_BATCH, size, size, config.data.num_channels),
       datasets.get_data_inverse_scaler(config))
   gen = torch.Generator(device="cuda").manual_seed(6)
-  samples, nfe = sampler(gen)  # warm-up
-  check(samples.device.type == "cuda", "the sampler ran off the card")
+  with network_evals(torch) as evals:
+    samples, nfe = sampler(gen)  # warm-up
+  evals = evals[0]
+  check(samples.device.type == "cuda", f"{tag} the sampler ran off the card")
+  check(bool(torch.isfinite(samples).all()), f"{tag} samples not finite")
   torch.cuda.synchronize()
   start = time.perf_counter()
   sampler(gen)
   torch.cuda.synchronize()
-  ms_nfe = (time.perf_counter() - start) * 1e3 / nfe
+  ms_eval = (time.perf_counter() - start) * 1e3 / evals
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     start = time.perf_counter()
@@ -694,21 +770,25 @@ def phase_sample_profile(torch, model, card_line: str) -> None:
   busy_ms = sum(by_kernel.values()) / 1e3
   attn_ms = sum(us for name, us in by_kernel.items()
                 if _kernel_category(name) == "attention forward") / 1e3
-  say(f"[sample-profile] batch {PROFILE_BATCH}, {nfe} NFE: {ms_nfe:.3f} "
-      f"ms/NFE = {PROFILE_BATCH * 1e3 / (ms_nfe * nfe):.2f} samples/s at "
-      f"this NFE ({card_line})")
+  say(f"{tag} {config.sampling.method} {config.sampling.predictor}/"
+      f"{config.sampling.corrector} at batch {PROFILE_BATCH}, {evals} network"
+      f" evaluations (reported NFE {nfe}): {ms_eval:.3f} ms/evaluation = "
+      f"{PROFILE_BATCH * 1e3 / (ms_eval * evals):.2f} samples/s at this "
+      f"count ({card_line})")
   if busy_ms <= 0:
-    say("[sample-profile] profiler: no device time recorded; shares not "
-        "measured")
-    return
-  say(f"[sample-profile] device busy {busy_ms / nfe:.3f} ms/NFE: idle share "
-      f"{1 - busy_ms / (ms_nfe * nfe):.3f} of the unprofiled wall, "
+    say(f"{tag} profiler: no device time recorded; shares not measured")
+    return evals
+  say(f"{tag} device busy {busy_ms / evals:.3f} ms/evaluation: idle share "
+      f"{1 - busy_ms / (ms_eval * evals):.3f} of the unprofiled wall, "
       f"{1 - busy_ms / wall_ms:.3f} of the profiled; attention kernel "
-      f"{attn_ms / nfe:.4f} ms/NFE = {attn_ms / busy_ms:.1%} of device time")
-  _report_families("[sample-profile]", by_kernel, nfe, "NFE")
+      f"{attn_ms / evals:.4f} ms/evaluation = {attn_ms / busy_ms:.1%} of "
+      f"device time")
+  _report_families(tag, by_kernel, evals, "evaluation")
+  return evals
 
 
-def phase_train_time(torch, config, card_line: str) -> None:
+def phase_train_time(torch, config, card_line: str,
+                     tag: str = "[train]") -> None:
   """The train step at batch 128 as the loop runs it (one n-step call of
   ``training.n_jitted_steps`` steps at a time): wall ms per step over
   TIMED_STEPS steps, images/s, peak device memory, and a profiled window
@@ -741,7 +821,7 @@ def phase_train_time(torch, config, card_line: str) -> None:
   steps(TIMED_STEPS)
   ms = (time.perf_counter() - start) * 1e3 / TIMED_STEPS
   peak = torch.cuda.max_memory_allocated() / 2 ** 30
-  say(f"[train] step at batch {TRAIN_BATCH}: {ms:.2f} ms/step = "
+  say(f"{tag} step at batch {TRAIN_BATCH}: {ms:.2f} ms/step = "
       f"{TRAIN_BATCH * 1e3 / ms:.1f} images/s over {TIMED_STEPS} steps; peak "
       f"max_memory_allocated {peak:.2f} GiB ({card_line})")
 
@@ -754,15 +834,16 @@ def phase_train_time(torch, config, card_line: str) -> None:
   by_kernel = _device_us_by_kernel(prof)
   busy_us = sum(by_kernel.values())
   if busy_us <= 0:
-    say("[train] profiler: no device time recorded; idle share not measured")
+    say(f"{tag} profiler: no device time recorded; idle share not "
+        "measured")
     return
   busy_ms = busy_us / 1e3 / PROFILED_STEPS
-  say(f"[train] device busy {busy_ms:.2f} ms/step (profiled, "
+  say(f"{tag} device busy {busy_ms:.2f} ms/step (profiled, "
       f"{PROFILED_STEPS} steps): idle share {1 - busy_ms / ms:.3f} of the "
       f"unprofiled {ms:.2f} ms/step, {1 - busy_us / wall_us:.3f} of the "
       f"profiled window's wall {wall_us / 1e3 / PROFILED_STEPS:.2f} ms/step "
       f"({card_line})")
-  _report_families("[train]", by_kernel, PROFILED_STEPS, "step")
+  _report_families(tag, by_kernel, PROFILED_STEPS, "step")
 
 
 def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
@@ -1109,12 +1190,247 @@ def phase_eval_checks(torch, attn, config, model, workdir: str,
    torch.backends.cudnn.allow_tf32) = defaults
 
 
+def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
+  """``main --mode train`` in process on the VP DDPM++ config at full width
+  and batch 128: VP_TRAIN_STEPS steps with an Euler-Maruyama snapshot grid
+  (num_scales 100, one network evaluation a step), its checkpoint and the
+  launches checked; then the step's time, peak memory and device profile.
+  Returns the run's forward and backward kernel launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import checkpoint, configs, main
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  flags = dict(TRAIN_FLAGS, **{"training.snapshot_freq": VP_TRAIN_STEPS,
+                               "training.n_iters": VP_TRAIN_STEPS})
+  config = configs.load_config(VP_CONFIG,
+                               [f"{k}={v}" for k, v in flags.items()])
+  n_jitted = config.training.n_jitted_steps
+  initial = [p.detach() for p in mutils.create_model(
+      config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()]
+  attn.flash_attention_launches = 0
+  attn.flash_attention_backward_launches = 0
+  start = time.perf_counter()
+  with network_evals(torch) as evals:
+    run = main.main(["--config", VP_CONFIG, "--workdir", workdir,
+                     "--mode", "train"]
+                    + [f"--config.{k}={v}" for k, v in flags.items()])
+  launches = (attn.flash_attention_launches,
+              attn.flash_attention_backward_launches)
+  say(f"[vp-train] main --mode train, {VP_TRAIN_STEPS} steps at batch "
+      f"{TRAIN_BATCH}, snapshot sampling Euler-Maruyama at num_scales "
+      f"{SMOKE_SCALES}: {time.perf_counter() - start:.1f} s wall; losses "
+      f"{run['train_losses']}, eval {run['eval_losses']}")
+  seen = [v for _, v in run["train_losses"] + run["eval_losses"]]
+  check(len(seen) == 4 and all(math.isfinite(v) for v in seen),
+        f"[vp-train] logged losses {seen}")
+  _ckpt_checks(torch, checkpoint.numbered_path(workdir, 1), VP_TRAIN_STEPS,
+               initial, config.model.ema_rate)
+  samples = np.load(os.path.join(workdir, "samples", f"iter_{VP_TRAIN_STEPS}",
+                                 "sample.np"))
+  size = config.data.image_size
+  check(samples.shape == (TRAIN_BATCH, size, size, 3)
+        and np.isfinite(samples).all(),
+        f"[vp-train] snapshot samples {samples.shape}")
+  eval_calls = VP_TRAIN_STEPS // config.training.eval_freq
+  want_evals = VP_TRAIN_STEPS + n_jitted * eval_calls + SMOKE_SCALES
+  want = (ATTN_PER_FORWARD * want_evals, ATTN_PER_FORWARD * VP_TRAIN_STEPS)
+  say(f"[vp-train] kernel launches: forward {launches[0]} = "
+      f"{ATTN_PER_FORWARD} x {evals[0]} network evaluations ("
+      f"{VP_TRAIN_STEPS} train steps + {n_jitted} x {eval_calls} eval calls "
+      f"+ {SMOKE_SCALES} sampling), backward calls {launches[1]} = "
+      f"{ATTN_PER_FORWARD} x {VP_TRAIN_STEPS} train steps")
+  check(evals[0] == want_evals, f"[vp-train] {evals[0]} network "
+        f"evaluations, want {want_evals}")
+  check(launches == want, f"[vp-train] launches {launches}, want {want}")
+  phase_train_time(torch, config, card_line, tag="[vp-train]")
+  return launches
+
+
+def phase_vp_sample(torch, attn, workdir: str, card_line: str) -> int:
+  """``main --mode sample`` in process on [vp-train]'s checkpoint:
+  Euler-Maruyama, one network evaluation a step, SMOKE_ROUNDS rounds of
+  SMOKE_BATCH. Returns the forward kernel launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import main
+  attn.flash_attention_launches = 0
+  with network_evals(torch) as evals:
+    rounds = main.main(["--config", VP_CONFIG, "--workdir", workdir,
+                        "--mode", "sample", "--num_samples",
+                        str(SMOKE_BATCH * SMOKE_ROUNDS),
+                        f"--config.model.num_scales={SMOKE_SCALES}",
+                        f"--config.eval.batch_size={SMOKE_BATCH}"])
+  launches = attn.flash_attention_launches
+  for r in range(SMOKE_ROUNDS):
+    samples = np.load(os.path.join(workdir, "generated",
+                                   f"samples_{r}.npz"))["samples"]
+    check(samples.shape == (SMOKE_BATCH, 32, 32, 3),
+          f"[vp-sample] samples_{r}.npz {samples.shape}")
+  want = SMOKE_SCALES * SMOKE_ROUNDS
+  check(evals[0] == want, f"[vp-sample] {evals[0]} evaluations, want {want}")
+  check(launches == ATTN_PER_FORWARD * want,
+        f"[vp-sample] {launches} launches, want {ATTN_PER_FORWARD} x {want}")
+  for r, rec in enumerate(rounds):
+    say(f"[vp-sample] round {r}: {rec['samples']} samples in "
+        f"{rec['seconds']:.3f} s, reported NFE {rec['nfe']}, "
+        f"{SMOKE_SCALES} network evaluations: "
+        f"{rec['seconds'] * 1e3 / SMOKE_SCALES:.3f} ms/evaluation at batch "
+        f"{SMOKE_BATCH} ({card_line})")
+  say(f"[vp-sample] {launches} kernel launches = {ATTN_PER_FORWARD} x "
+      f"{evals[0]} network evaluations")
+  return launches
+
+
+def phase_vp_eval(torch, attn, workdir: str, card_line: str) -> tuple:
+  """``main --mode eval`` in process on [vp-train]'s checkpoint_1 with the
+  loss and bits/dim stages on the small ``.npz`` test split of [eval].
+  Returns the forward and backward kernel launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import main
+  with tempfile.TemporaryDirectory() as base:
+    data_dir = _write_eval_data(os.path.join(base, "data"), 32)
+    overrides = {"eval.begin_ckpt": 1, "eval.end_ckpt": 1,
+                 "eval.batch_size": EVAL_BATCH, "eval.enable_loss": True,
+                 "eval.enable_bpd": True, "eval.enable_sampling": False,
+                 "data.dataset": "NPZ", "data.data_dir": data_dir}
+    attn.flash_attention_launches = 0
+    attn.flash_attention_backward_launches = 0
+    start = time.perf_counter()
+    with network_evals(torch) as evals:
+      (record,) = main.main(
+          ["--config", VP_CONFIG, "--workdir", workdir, "--mode", "eval"]
+          + [f"--config.{k}={v}" for k, v in overrides.items()])
+    seconds = time.perf_counter() - start
+  launches = (attn.flash_attention_launches,
+              attn.flash_attention_backward_launches)
+  with np.load(os.path.join(workdir, "eval", "test_ckpt_1_bpd.npz")) as z:
+    bpd = z["bpd"]
+  check(bpd.shape == (5 * EVAL_BATCH,) and np.isfinite(bpd).all(),
+        f"[vp-eval] bits/dim {bpd.shape}, finite {np.isfinite(bpd).all()}")
+  drift_evals = sum(record["bpd_nfe"])
+  check(evals[0] == 1 + drift_evals,
+        f"[vp-eval] {evals[0]} network evaluations, want 1 + {drift_evals}")
+  want = (ATTN_PER_FORWARD * (1 + drift_evals),
+          ATTN_PER_FORWARD * drift_evals)
+  say(f"[vp-eval] main --mode eval: {seconds:.1f} s wall; eval loss "
+      f"{record['mean_loss']:.6g}; bits/dim {record['bpd']:.6f} (mean of "
+      f"{bpd.size}), RK45 NFE per integration {record['bpd_nfe']}, seconds "
+      f"per bpd batch {[round(x, 3) for x in record['bpd_seconds']]} "
+      f"({card_line})")
+  say(f"[vp-eval] kernel launches: forward {launches[0]} = {ATTN_PER_FORWARD}"
+      f" x (1 loss batch + {drift_evals} drift evaluations), backward calls "
+      f"{launches[1]} = {ATTN_PER_FORWARD} x {drift_evals}")
+  check(launches == want, f"[vp-eval] launches {launches}, want {want}")
+  return launches
+
+
+def phase_ddpm(torch, attn, card_line: str) -> int:
+  """vp/ddpm/cifar10.py at full width: a checkpoint of the seeded model,
+  then (TF32 off) the unit-gain forward through the kernel against the
+  plain attention and the CPU, then (PyTorch's defaults) ``main --mode
+  sample`` with ancestral sampling, 4 attention calls per evaluation.
+  Returns the sample run's forward kernel launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import checkpoint, configs, main
+  from score_sde_pytorch_tpu_torch.models import layers
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(DDPM_CONFIG,
+                               [f"model.num_scales={SMOKE_SCALES}"])
+  model = mutils.create_model(config, "cuda",
+                              torch.Generator().manual_seed(config.seed))
+  n_params = sum(p.numel() for p in model.parameters())
+  with tempfile.TemporaryDirectory() as workdir:
+    checkpoint.save_checkpoint(checkpoint.numbered_path(workdir, 1), model,
+                               config, step=1)
+    unit_gain_(torch, model, layers, seed=config.seed)
+    defaults = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+      phase_forward(torch, attn, config, model, tag="[ddpm]",
+                    per_forward=DDPM_ATTN_PER_FORWARD)
+    finally:
+      (torch.backends.cuda.matmul.allow_tf32,
+       torch.backends.cudnn.allow_tf32) = defaults
+    del model
+    attn.flash_attention_launches = 0
+    with network_evals(torch) as evals:
+      (rec,) = main.main(["--config", DDPM_CONFIG, "--workdir", workdir,
+                          "--mode", "sample",
+                          f"--config.model.num_scales={SMOKE_SCALES}",
+                          f"--config.eval.batch_size={SMOKE_BATCH}"])
+    launches = attn.flash_attention_launches
+    samples = np.load(os.path.join(workdir, "generated",
+                                   "samples_0.npz"))["samples"]
+  check(samples.shape == (SMOKE_BATCH, 32, 32, 3),
+        f"[ddpm] samples {samples.shape}")
+  check(evals[0] == SMOKE_SCALES,
+        f"[ddpm] {evals[0]} network evaluations, want {SMOKE_SCALES}")
+  check(launches == DDPM_ATTN_PER_FORWARD * SMOKE_SCALES,
+        f"[ddpm] {launches} launches, want {DDPM_ATTN_PER_FORWARD} x "
+        f"{SMOKE_SCALES}")
+  say(f"[ddpm] {n_params} parameters; main --mode sample, ancestral "
+      f"sampling (discrete VP, num_scales {SMOKE_SCALES}) at batch "
+      f"{SMOKE_BATCH}: {rec['seconds']:.3f} s, "
+      f"{rec['seconds'] * 1e3 / evals[0]:.3f} ms/evaluation ({card_line}); "
+      f"{launches} kernel launches = {DDPM_ATTN_PER_FORWARD} x {evals[0]} "
+      f"evaluations")
+  return launches
+
+
+def phase_samplers(torch, attn, model, card_line: str) -> int:
+  """Every other sampling rule on the VP DDPM++ model at batch 64: finite
+  samples, the network evaluations each rule makes, and 6 attention
+  launches per evaluation. Returns the forward kernel launches."""
+  from score_sde_pytorch_tpu_torch import configs, datasets, sampling
+  from score_sde_pytorch_tpu_torch import sde as sde_lib
+  n, k = SAMPLERS_SCALES, FLOW_STEPS
+  cases = [
+      ("pc reverse_diffusion + langevin",
+       dict(predictor="reverse_diffusion", corrector="langevin"), 2 * n),
+      ("pc none + ald", dict(predictor="none", corrector="ald"), n),
+      ("heun", dict(method="heun", heun_steps=k), 2 * k + 1),
+      ("dpmpp", dict(method="dpmpp", dpmpp_steps=k), k + 1),
+      ("dpmpp stochastic",
+       dict(method="dpmpp", dpmpp_steps=k, dpmpp_stochastic=True), k + 1)]
+  total = 0
+  for name, settings, want in cases:
+    config = configs.load_config(VP_CONFIG, [f"model.num_scales={n}"] + [
+        f"sampling.{key}={value}" for key, value in settings.items()])
+    size = config.data.image_size
+    sampler = sampling.get_sampling_fn(
+        config, sde_lib.build_sde(config), model,
+        (SAMPLERS_BATCH, size, size, 3),
+        datasets.get_data_inverse_scaler(config))
+    attn.flash_attention_launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with network_evals(torch) as evals:
+      samples, nfe = sampler(torch.Generator(device="cuda").manual_seed(11))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = attn.flash_attention_launches
+    total += launches
+    say(f"[samplers] {name}: reported NFE {nfe}, {evals[0]} network "
+        f"evaluations, {launches} kernel launches; {seconds:.3f} s at batch "
+        f"{SAMPLERS_BATCH} = {seconds * 1e3 / evals[0]:.3f} ms/evaluation; "
+        f"max|sample| {samples.abs().max().item():.4g} ({card_line})")
+    check(bool(torch.isfinite(samples).all()), f"[samplers] {name}: "
+          "samples not finite")
+    check(evals[0] == want, f"[samplers] {name}: {evals[0]} evaluations, "
+          f"want {want}")
+    check(launches == ATTN_PER_FORWARD * evals[0],
+          f"[samplers] {name}: {launches} launches, want {ATTN_PER_FORWARD}"
+          f" x {evals[0]}")
+  return total
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device: "
                      "torch.cuda.is_available() is False")
   from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch import sde as sde_lib
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   from score_sde_pytorch_tpu_torch.ops import attention as attn
@@ -1141,6 +1457,15 @@ def main() -> int:
   unit_gain_(torch, model, layers, seed=config.seed)
   phase_forward(torch, attn, config, model)
   phase_grad(torch, attn, config, model)
+  vp_config = configs.load_config(VP_CONFIG)
+  vp_model = mutils.create_model(vp_config, "cuda",
+                                 torch.Generator().manual_seed(vp_config.seed))
+  unit_gain_(torch, vp_model, layers, seed=vp_config.seed)
+  say(f"[vp-forward] {VP_CONFIG[len(ROOT) + 1:]}: "
+      f"{sum(p.numel() for p in vp_model.parameters())} parameters")
+  phase_forward(torch, attn, vp_config, vp_model, tag="[vp-forward]")
+  for sde in (sde_lib.VPSDE(), sde_lib.SubVPSDE()):
+    phase_grad(torch, attn, vp_config, vp_model, sde=sde, tag="[vp-grad]")
 
   # Sampling, training and evaluation run as a user runs them: PyTorch's
   # default TF32 settings.
@@ -1161,6 +1486,20 @@ def main() -> int:
                     act.fused_leaky_relu_backward_launches)
     phase_eval_checks(torch, attn, config, model, workdir, card_line)
   del model
+  with tempfile.TemporaryDirectory() as workdir:
+    vp_train = phase_vp_train(torch, attn, card_line, workdir)
+    vp_sample = phase_vp_sample(torch, attn, workdir, card_line)
+    vp_eval = phase_vp_eval(torch, attn, workdir, card_line)
+  ddpm_sample = phase_ddpm(torch, attn, card_line)
+  samplers = phase_samplers(torch, attn, vp_model, card_line)
+  attn.flash_attention_launches = 0
+  evals = phase_sample_profile(torch, vp_model, card_line, VP_CONFIG,
+                               VP_PROFILE_SCALES, tag="[vp-profile]")
+  check(evals == VP_PROFILE_SCALES
+        and attn.flash_attention_launches == ATTN_PER_FORWARD * evals * 3,
+        f"[vp-profile] {attn.flash_attention_launches} kernel launches in 3 "
+        f"sampler runs of {evals} evaluations")
+  del vp_model
   # The card's machine has jax installed, so an import of it would not fail;
   # nor would one of the JAX package, which sits beside the port.
   leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -1170,9 +1509,10 @@ def main() -> int:
 
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
-       launches + train_fwd + eval_fwd, record),
+       launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
+       + vp_eval[0] + ddpm_sample + samplers, record),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
-       train_bwd + eval_bwd, record_bwd),
+       train_bwd + eval_bwd + vp_train[1] + vp_eval[1], record_bwd),
       # On no model's path: the sample, train and eval runs launch it 0
       # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],

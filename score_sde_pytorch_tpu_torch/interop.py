@@ -1,13 +1,14 @@
 """Load the JAX package's parameters into the port's modules.
 
-The map from a flax params tree of NCSN++ to the port's state_dict, numpy
-only: a copy of the NCSN++ part of score_sde_pytorch_tpu/interop.py
-(the row builders :37-97, ``ncsnpp_param_map`` :99-218, the HWIO → OIHW
+The map from a flax params tree of NCSN++ or DDPM to the port's state_dict,
+numpy only: a copy of the NCSN++ and DDPM parts of
+score_sde_pytorch_tpu/interop.py (the row builders :37-97,
+``ncsnpp_param_map`` :99-218, ``ddpm_param_map`` :221-305, the HWIO → OIHW
 transform and ``flax_params_to_torch_state_dict`` :481-531), so that the port
 imports nothing of the JAX package. The port's modules use the torch
 reference's layout, so loading is that map plus
 ``load_state_dict(strict=True)``. ``tests/test_torch_copies.py`` holds the
-map equal to the JAX package's, row for row.
+maps equal to the JAX package's, row for row.
 """
 from __future__ import annotations
 
@@ -189,6 +190,93 @@ def ncsnpp_param_map(config) -> List[Tuple[str, str, str]]:
   return rows
 
 
+def ddpm_param_map(config) -> List[Tuple[str, str, str]]:
+  """Replay the DDPM construction order. A reference resblock owns a
+  ``Dense_0`` even when the model is unconditional; the flax module has none
+  then, so those rows have no flax path and carry the torch shape in their
+  third slot."""
+  rows: List[Tuple[str, str, str]] = []
+  m = config.model
+  nf = m.nf
+  ch_mult = tuple(m.ch_mult)
+  num_res_blocks = m.num_res_blocks
+  num_resolutions = len(ch_mult)
+  attn_resolutions = tuple(m.attn_resolutions)
+  all_resolutions = [config.data.image_size // (2 ** i)
+                     for i in range(num_resolutions)]
+  resamp_with_conv = m.resamp_with_conv
+
+  def legacy_resblock(idx, name, in_ch, out_ch):
+    base = f"all_modules.{idx}"
+    _groupnorm(f"{base}.GroupNorm_0", f"{name}/GroupNorm_0", rows)
+    _conv(f"{base}.Conv_0", f"{name}/Conv_0", rows)
+    if m.conditional:
+      _dense(f"{base}.Dense_0", f"{name}/Dense_0", rows)
+    else:
+      rows.append((f"{base}.Dense_0.weight", None, (out_ch, nf * 4)))
+      rows.append((f"{base}.Dense_0.bias", None, (out_ch,)))
+    _groupnorm(f"{base}.GroupNorm_1", f"{name}/GroupNorm_1", rows)
+    _conv(f"{base}.Conv_1", f"{name}/Conv_1", rows)
+    if in_ch != out_ch:
+      _nin(f"{base}.NIN_0", f"{name}/NIN_0", rows)
+
+  def legacy_attn(idx, name):
+    base = f"all_modules.{idx}"
+    _groupnorm(f"{base}.GroupNorm_0", f"{name}/GroupNorm_0", rows)
+    for i in range(4):
+      _nin(f"{base}.NIN_{i}", f"{name}/NIN_{i}", rows)
+
+  idx = 0
+  if m.conditional:
+    _dense(f"all_modules.{idx}", "Dense_t0", rows); idx += 1
+    _dense(f"all_modules.{idx}", "Dense_t1", rows); idx += 1
+  _conv(f"all_modules.{idx}", "conv_in", rows); idx += 1
+
+  hs_c = [nf]
+  in_ch = nf
+  for i_level in range(num_resolutions):
+    for i_block in range(num_res_blocks):
+      out_ch = nf * ch_mult[i_level]
+      legacy_resblock(idx, f"down_{i_level}_block_{i_block}", in_ch, out_ch)
+      idx += 1
+      in_ch = out_ch
+      if all_resolutions[i_level] in attn_resolutions:
+        legacy_attn(idx, f"down_{i_level}_attn_{i_block}"); idx += 1
+      hs_c.append(in_ch)
+    if i_level != num_resolutions - 1:
+      if resamp_with_conv:
+        _conv(f"all_modules.{idx}.Conv_0",
+              f"down_{i_level}_downsample/Conv_0", rows)
+      idx += 1
+      hs_c.append(in_ch)
+
+  legacy_resblock(idx, "mid_block_0", in_ch, in_ch); idx += 1
+  legacy_attn(idx, "mid_attn"); idx += 1
+  legacy_resblock(idx, "mid_block_1", in_ch, in_ch); idx += 1
+
+  for i_level in reversed(range(num_resolutions)):
+    for i_block in range(num_res_blocks + 1):
+      out_ch = nf * ch_mult[i_level]
+      legacy_resblock(idx, f"up_{i_level}_block_{i_block}",
+                      in_ch + hs_c.pop(), out_ch)
+      idx += 1
+      in_ch = out_ch
+    if all_resolutions[i_level] in attn_resolutions:
+      legacy_attn(idx, f"up_{i_level}_attn"); idx += 1
+    if i_level != 0:
+      if resamp_with_conv:
+        _conv(f"all_modules.{idx}.Conv_0",
+              f"up_{i_level}_upsample/Conv_0", rows)
+      idx += 1
+
+  _groupnorm(f"all_modules.{idx}", "norm_out", rows); idx += 1
+  _conv(f"all_modules.{idx}", "conv_out", rows); idx += 1
+  return rows
+
+
+_PARAM_MAPS = {"ncsnpp": ncsnpp_param_map, "ddpm": ddpm_param_map}
+
+
 def _to_torch_layout(arr: np.ndarray, kind: str) -> np.ndarray:
   if kind == "conv":
     assert arr.ndim == 4, arr.shape
@@ -208,17 +296,23 @@ def _lookup(tree: Dict, path: str) -> np.ndarray:
 
 def flax_params_to_torch_state_dict(params: Dict,
                                     config) -> Dict[str, np.ndarray]:
-  """An NCSN++ flax params tree (leaves convertible to numpy) as a
+  """An NCSN++ or DDPM flax params tree (leaves convertible to numpy) as a
   reference-layout state_dict of numpy arrays, in parameter-registration
-  order, led by the ``sigmas`` buffer (float64, from the config)."""
-  if config.model.name != "ncsnpp":
+  order, led by the ``sigmas`` buffer (float64, from the config). Rows with
+  no flax path (an unconditional DDPM's ``Dense_0``) come out as zeros of
+  the torch shape their row carries."""
+  param_map = _PARAM_MAPS.get(config.model.name)
+  if param_map is None:
     raise NotImplementedError(
-        f"model {config.model.name!r} is not ported yet (only ncsnpp); see "
-        "ROADMAP.md queue 1")
+        f"model {config.model.name!r} is not ported yet (ported: "
+        f"{sorted(_PARAM_MAPS)}); see ROADMAP.md queue 1 item 11")
   out: Dict[str, np.ndarray] = {"sigmas": np.exp(np.linspace(
       np.log(config.model.sigma_max), np.log(config.model.sigma_min),
       config.model.num_scales))}
-  for torch_key, flax_path, kind in ncsnpp_param_map(config):
+  for torch_key, flax_path, kind in param_map(config):
+    if flax_path is None:
+      out[torch_key] = np.zeros(kind, np.float32)
+      continue
     out[torch_key] = _to_torch_layout(_lookup(params, flax_path), kind)
   return out
 

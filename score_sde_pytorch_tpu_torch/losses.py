@@ -133,15 +133,22 @@ def init_train_state(config, model: torch.nn.Module, device) -> dict:
   }
 
 
+def _reduce_op(reduce_mean: bool) -> Callable:
+  """Per-example reduction of a [B, D] tensor: the mean, or half the sum."""
+
+  def reduce_op(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=-1) if reduce_mean else 0.5 * x.sum(dim=-1)
+
+  return reduce_op
+
+
 def get_sde_loss_core(sde: sde_lib.SDE, train: bool, reduce_mean: bool = True,
                       continuous: bool = True,
                       likelihood_weighting: bool = True) -> Callable:
   """``core(model, batch, t, z) -> scalar``: the continuous score-matching
   loss at given times ``t`` ([B]) and noise ``z`` (batch's shape) (JAX
   losses.py:96-114 after the draws)."""
-
-  def reduce_op(x: torch.Tensor) -> torch.Tensor:
-    return x.mean(dim=-1) if reduce_mean else 0.5 * x.sum(dim=-1)
+  reduce_op = _reduce_op(reduce_mean)
 
   def core(model: torch.nn.Module, batch: torch.Tensor, t: torch.Tensor,
            z: torch.Tensor) -> torch.Tensor:
@@ -187,18 +194,81 @@ def get_sde_loss_fn(sde: sde_lib.SDE, train: bool, reduce_mean: bool = True,
   return loss_fn
 
 
-def get_smld_loss_fn(*args, **kwargs):
-  """SMLD loss (JAX losses.py:119-142): needs the discrete VE score
-  function, which is not ported."""
-  raise NotImplementedError("the SMLD loss (training.continuous=False on a "
-                            "VE SDE) is not ported yet; see ROADMAP.md queue "
-                            "1 item 11")
+def draw_labels_z(batch: torch.Tensor, generator: torch.Generator, n: int):
+  """The discrete losses' draws: an integer noise level in [0, n) per
+  example and z ~ N(0, 1) of the batch's shape."""
+  labels = torch.randint(0, n, (batch.shape[0],), generator=generator,
+                         device=batch.device)
+  z = torch.randn(batch.shape, generator=generator, device=batch.device)
+  return labels, z
 
 
-def get_ddpm_loss_fn(*args, **kwargs):
-  """DDPM loss (JAX losses.py:145-166): needs the VP SDE, not ported."""
-  raise NotImplementedError("the DDPM loss needs the VP SDE, which is not "
-                            "ported yet; see ROADMAP.md queue 1 item 2")
+def get_smld_loss_core(vesde: sde_lib.VESDE, train: bool,
+                       reduce_mean: bool = False) -> Callable:
+  """``core(model, batch, labels, z) -> scalar``: the SMLD (NCSN) loss at
+  integer ``labels`` into the descending sigma ladder and noise ``z`` (JAX
+  losses.py:119-142 after the draws)."""
+  if not isinstance(vesde, sde_lib.VESDE):
+    raise ValueError("SMLD training only works for VESDEs.")
+  reduce_op = _reduce_op(reduce_mean)
+
+  def core(model, batch, labels, z):
+    model_fn = mutils.get_model_fn(model, train=train)
+    # Previous SMLD models assume descending sigmas.
+    sigmas = torch.flip(vesde.discrete_sigmas(batch.device), (0,))[labels]
+    noise = batch_mul(sigmas, z)
+    score = model_fn(noise + batch, labels)
+    target = batch_mul(-1.0 / sigmas ** 2, noise)
+    losses = torch.square(score - target)
+    losses = reduce_op(losses.reshape(losses.shape[0], -1)) * sigmas ** 2
+    return torch.mean(losses)
+
+  return core
+
+
+def get_ddpm_loss_core(vpsde: sde_lib.VPSDE, train: bool,
+                       reduce_mean: bool = True) -> Callable:
+  """``core(model, batch, labels, z) -> scalar``: the DDPM epsilon-prediction
+  loss at integer timesteps ``labels`` and noise ``z`` (JAX
+  losses.py:145-166 after the draws)."""
+  if not isinstance(vpsde, sde_lib.VPSDE):
+    raise ValueError("DDPM training only works for VPSDEs.")
+  reduce_op = _reduce_op(reduce_mean)
+
+  def core(model, batch, labels, z):
+    model_fn = mutils.get_model_fn(model, train=train)
+    perturbed_data = (
+        batch_mul(vpsde.sqrt_alphas_cumprod(batch.device)[labels], batch)
+        + batch_mul(vpsde.sqrt_1m_alphas_cumprod(batch.device)[labels], z))
+    score = model_fn(perturbed_data, labels)
+    losses = torch.square(score - z)
+    return torch.mean(reduce_op(losses.reshape(losses.shape[0], -1)))
+
+  return core
+
+
+def get_smld_loss_fn(vesde: sde_lib.VESDE, train: bool,
+                     reduce_mean: bool = False) -> Callable:
+  """``loss_fn(model, batch, generator) -> scalar``: draws the labels and z
+  from ``generator``, then :func:`get_smld_loss_core`."""
+  core = get_smld_loss_core(vesde, train, reduce_mean)
+
+  def loss_fn(model, batch, generator):
+    return core(model, batch, *draw_labels_z(batch, generator, vesde.N))
+
+  return loss_fn
+
+
+def get_ddpm_loss_fn(vpsde: sde_lib.VPSDE, train: bool,
+                     reduce_mean: bool = True) -> Callable:
+  """``loss_fn(model, batch, generator) -> scalar``: draws the labels and z
+  from ``generator``, then :func:`get_ddpm_loss_core`."""
+  core = get_ddpm_loss_core(vpsde, train, reduce_mean)
+
+  def loss_fn(model, batch, generator):
+    return core(model, batch, *draw_labels_z(batch, generator, vpsde.N))
+
+  return loss_fn
 
 
 def _select_loss_fn(sde, train, reduce_mean, continuous,
@@ -213,7 +283,10 @@ def _select_loss_fn(sde, train, reduce_mean, continuous,
                      "SMLD/DDPM training.")
   if isinstance(sde, sde_lib.VESDE):
     return get_smld_loss_fn(sde, train, reduce_mean=reduce_mean)
-  return get_ddpm_loss_fn(sde, train, reduce_mean=reduce_mean)
+  if isinstance(sde, sde_lib.VPSDE):
+    return get_ddpm_loss_fn(sde, train, reduce_mean=reduce_mean)
+  raise ValueError(
+      f"Discrete training for {type(sde).__name__} is not recommended.")
 
 
 def get_step_fn(sde: sde_lib.SDE, train: bool, optimize_fn=None,

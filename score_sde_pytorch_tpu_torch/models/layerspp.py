@@ -17,7 +17,6 @@ import torch
 from torch import nn
 
 from score_sde_pytorch_tpu_torch.models import layers
-from score_sde_pytorch_tpu_torch.ops import attention as attention_ops
 from score_sde_pytorch_tpu_torch.ops import upfirdn2d
 
 _SQRT2 = math.sqrt(2.0)
@@ -50,33 +49,16 @@ class GaussianFourierProjection(nn.Module):
     return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
-class AttnBlockpp(nn.Module):
-  """Channel-wise self-attention with skip rescale (JAX layerspp.py:59-88).
-
-  The [B, H·W, C] contraction goes through ``ops.attention.attention``: the
-  plain version on CPU tensors, the Hopper kernel on CUDA tensors, at every
-  grid size."""
+class AttnBlockpp(layers.AttnBlock):
+  """Channel-wise self-attention with skip rescale (JAX layerspp.py:59-88):
+  the legacy block with ``min(C/4, 32)`` groups, ``NIN_3`` drawn at
+  ``init_scale`` and, with ``skip_rescale``, ``(x + out)/√2``. Its
+  contraction runs the Hopper kernel on CUDA tensors, at every grid size."""
 
   def __init__(self, channels: int, *, generator: torch.Generator,
                skip_rescale: bool = False, init_scale: float = 0.0):
-    super().__init__()
-    self.GroupNorm_0 = layers.GroupNorm(_groups(channels), channels, eps=1e-6)
-    self.NIN_0 = layers.NIN(channels, channels, generator=generator)
-    self.NIN_1 = layers.NIN(channels, channels, generator=generator)
-    self.NIN_2 = layers.NIN(channels, channels, generator=generator)
-    self.NIN_3 = layers.NIN(channels, channels, generator=generator,
-                            init_scale=init_scale)
-    self.skip_rescale = skip_rescale
-
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    b, c, h, w = x.shape
-    hid = self.GroupNorm_0(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-    q, k, v = self.NIN_0(hid), self.NIN_1(hid), self.NIN_2(hid)
-    out = attention_ops.attention(q, k, v)
-    out = self.NIN_3(out).reshape(b, h, w, c).permute(0, 3, 1, 2)
-    if not self.skip_rescale:
-      return x + out
-    return (x + out) / _SQRT2
+    super().__init__(channels, generator=generator, groups=_groups(channels),
+                     init_scale=init_scale, skip_rescale=skip_rescale)
 
 
 class Conv2dFused(nn.Module):

@@ -1,4 +1,4 @@
-"""NCSN++ score network (NCHW), flagship branches.
+"""NCSN++ / DDPM++ score network (NCHW).
 
 Counterpart of score_sde_pytorch_tpu/models/ncsnpp.py:40-272. Modules live
 in one flat ``all_modules`` list in the torch reference's construction order
@@ -7,10 +7,11 @@ so that ``score_sde_pytorch_tpu.interop.flax_params_to_torch_state_dict``
 and the reference's ``.pth`` files load with ``strict=True``. Comments name
 each module's flax counterpart.
 
-Ported branches: Fourier noise embedding, BigGAN resblocks with FIR
-resampling, ``progressive='none'``, ``progressive_input='residual'``,
-``scale_by_sigma`` and the ``2x - 1`` input scaling of uncentered data.
-Everything else raises NotImplementedError.
+Ported branches: Fourier and positional noise embeddings, BigGAN resblocks
+with FIR or naive resampling (``fir``), ``progressive='none'``,
+``progressive_input`` 'none' or 'residual', ``scale_by_sigma`` and the
+``2x - 1`` input scaling of uncentered data: the flagship VE NCSN++ and the
+DDPM++ of the VP/subVP configs. The rest raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,31 +24,27 @@ from score_sde_pytorch_tpu_torch.models import layers, layerspp, utils
 
 _SQRT2 = math.sqrt(2.0)
 
-# The flagship's settings; any other value of these keys is not ported yet.
+# The values of these settings that are ported; any other raises.
 _PORTED = {
-    "embedding_type": "fourier",
-    "resblock_type": "biggan",
-    "progressive": "none",
-    "progressive_input": "residual",
-    "attention_type": "ddpm",
+    "embedding_type": ("fourier", "positional"),
+    "resblock_type": ("biggan",),
+    "progressive": ("none",),
+    "progressive_input": ("none", "residual"),
 }
 
 
 def _check_ported(config) -> None:
   m = config.model
-  for key, want in _PORTED.items():
+  for key, ported in _PORTED.items():
     got = str(m[key]).lower()
-    if got != want:
+    if got not in ported:
       raise NotImplementedError(
-          f"NCSNpp model.{key}={got!r} is not ported yet (only {want!r}); "
-          "see ROADMAP.md queue 1 item 11")
+          f"NCSNpp model.{key}={got!r} is not ported yet (only "
+          f"{', '.join(map(repr, ported))}); see ROADMAP.md queue 1 item 3")
   if not m.conditional:
     raise NotImplementedError("NCSNpp with conditional=False is not ported "
-                              "yet; see ROADMAP.md queue 1 item 11")
-  if not m.fir:
-    raise NotImplementedError("NCSNpp with fir=False is not ported yet; see "
-                              "ROADMAP.md queue 1 item 11")
-  if not config.training.continuous:
+                              "yet; see ROADMAP.md queue 1 item 3")
+  if m.embedding_type.lower() == "fourier" and not config.training.continuous:
     raise ValueError("Fourier features are only used for continuous training.")
 
 
@@ -74,7 +71,10 @@ class NCSNpp(nn.Module):
     self.skip_rescale = skip_rescale = m.skip_rescale
     self.centered = config.data.centered
     self.scale_by_sigma = m.scale_by_sigma
-    fir_kernel = tuple(m.fir_kernel)
+    self.embedding_type = m.embedding_type.lower()
+    self.nf = nf
+    self.residual_input = m.progressive_input.lower() == "residual"
+    fir, fir_kernel = m.fir, tuple(m.fir_kernel)
     init_scale = m.init_scale
     channels = config.data.num_channels
     g = generator
@@ -82,16 +82,20 @@ class NCSNpp(nn.Module):
     def resblock(in_ch, out_ch=None, up=False, down=False):
       return layerspp.ResnetBlockBigGANpp(
           act, in_ch, out_ch, nf * 4, generator=g, up=up, down=down,
-          dropout=m.dropout, fir=True, fir_kernel=fir_kernel,
+          dropout=m.dropout, fir=fir, fir_kernel=fir_kernel,
           skip_rescale=skip_rescale, init_scale=init_scale)
 
     def attn(ch):
       return layerspp.AttnBlockpp(ch, generator=g, skip_rescale=skip_rescale,
                                   init_scale=init_scale)
 
-    modules = [
-        layerspp.GaussianFourierProjection(nf, m.fourier_scale, generator=g),
-        layers.dense(nf * 2, nf * 4, generator=g),          # Dense_t0
+    modules = []
+    if self.embedding_type == "fourier":
+      modules.append(layerspp.GaussianFourierProjection(  # FourierProj
+          nf, m.fourier_scale, generator=g))
+    embed_dim = nf * 2 if self.embedding_type == "fourier" else nf
+    modules += [
+        layers.dense(embed_dim, nf * 4, generator=g),       # Dense_t0
         layers.dense(nf * 4, nf * 4, generator=g),          # Dense_t1
         layers.ddpm_conv3x3(channels, nf, generator=g),     # conv_in
     ]
@@ -108,10 +112,11 @@ class NCSNpp(nn.Module):
         hs_c.append(in_ch)
       if i_level != num_resolutions - 1:
         modules.append(resblock(in_ch, down=True))   # down_{i}_downsample
-        modules.append(layerspp.Downsample(          # pyramid_downsample_{i}
-            input_pyramid_ch, in_ch, generator=g, with_conv=True, fir=True,
-            fir_kernel=fir_kernel))
-        input_pyramid_ch = in_ch
+        if self.residual_input:
+          modules.append(layerspp.Downsample(        # pyramid_downsample_{i}
+              input_pyramid_ch, in_ch, generator=g, with_conv=True, fir=fir,
+              fir_kernel=fir_kernel))
+          input_pyramid_ch = in_ch
         hs_c.append(in_ch)
 
     modules.append(resblock(in_ch))                  # mid_block_0
@@ -136,13 +141,16 @@ class NCSNpp(nn.Module):
     self.all_modules = nn.ModuleList(modules)
 
   def forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
-    """Score-network output for NCHW ``x`` at noise levels ``time_cond``
-    (sigmas, shape [B])."""
+    """Score-network output for NCHW ``x`` at ``time_cond`` ([B]): the
+    noise levels sigma for the Fourier embedding, timestep labels (float or
+    integer) for the positional one."""
     modules = iter(self.all_modules)
     act = self.act
 
-    used_sigmas = time_cond
-    temb = next(modules)(torch.log(used_sigmas))     # FourierProj
+    if self.embedding_type == "fourier":
+      temb = next(modules)(torch.log(time_cond))     # FourierProj
+    else:
+      temb = layers.get_timestep_embedding(time_cond, self.nf)
     temb = next(modules)(temb)                       # Dense_t0
     temb = next(modules)(act(temb))                  # Dense_t1
 
@@ -159,12 +167,13 @@ class NCSNpp(nn.Module):
         hs.append(h)
       if i_level != self.num_resolutions - 1:
         h = next(modules)(hs[-1], temb)              # down_{i}_downsample
-        input_pyramid = next(modules)(input_pyramid)  # pyramid_downsample_{i}
-        if self.skip_rescale:
-          input_pyramid = (input_pyramid + h) / _SQRT2
-        else:
-          input_pyramid = input_pyramid + h
-        h = input_pyramid
+        if self.residual_input:
+          input_pyramid = next(modules)(input_pyramid)  # pyramid_downsample_{i}
+          if self.skip_rescale:
+            input_pyramid = (input_pyramid + h) / _SQRT2
+          else:
+            input_pyramid = input_pyramid + h
+          h = input_pyramid
         hs.append(h)
 
     h = hs[-1]
@@ -187,5 +196,11 @@ class NCSNpp(nn.Module):
 
     h = h.float()
     if self.scale_by_sigma:
+      if self.embedding_type == "fourier":
+        used_sigmas = time_cond
+      else:
+        # The JAX package reads the ladder as fp32 and clamps the index;
+        # dividing by the float64 buffer would promote the output.
+        used_sigmas = utils.gather_clamped(self.sigmas.float(), time_cond)
       h = h / used_sigmas.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
     return h

@@ -1,8 +1,9 @@
-"""SDE core: the SDE base, its reverse, and the VE SDE (PyTorch).
+"""SDE core: the SDE base, its reverse, and the VP, subVP and VE SDEs
+(PyTorch).
 
-Counterpart of score_sde_pytorch_tpu/sde.py:34-118 and 268-345. Tensors are
-NCHW, time ``t`` is a rank-1 batch vector, and randomness comes from an
-explicit ``torch.Generator``. VP and subVP are not ported yet.
+Counterpart of score_sde_pytorch_tpu/sde.py. Tensors are NCHW, time ``t`` is
+a rank-1 batch vector, and randomness comes from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -115,6 +116,127 @@ class ReverseSDE:
     return rev_f, rev_g
 
 
+def _check_discrete_betas_valid(sde) -> None:
+  """Raise where a discrete DDPM buffer is built with ``N <= beta_max``.
+
+  The grid is ``linspace(beta_min/N, beta_max/N, N)``: with ``N <= beta_max``
+  the last betas reach 1, the alphas go negative, and every discrete rule
+  (reverse-diffusion discretization, ancestral sampling, the Langevin and
+  ALD step sizes, the DDPM loss) returns NaN. Continuous use at small N
+  stays legal (JAX sde.py:120-136)."""
+  if sde.beta_max / sde.N >= 1.0:
+    raise ValueError(
+        f"{type(sde).__name__}(N={sde.N}, beta_max={sde.beta_max}): discrete "
+        f"betas reach {sde.beta_max / sde.N:.3g} >= 1, so alphas go negative "
+        "and every discrete sampling rule produces NaN. Use "
+        f"num_scales > beta_max (= {sde.beta_max:g}) for VP/subVP.")
+
+
+def _timestep_index(sde, t: torch.Tensor) -> torch.Tensor:
+  """Index of time ``t`` on a discrete grid: ``int32(t (N - 1) / T)``,
+  truncated, as the JAX package computes it."""
+  return (t * (sde.N - 1) / sde.T).to(torch.int32).long()
+
+
+class _LinearBeta:
+  """The linear beta schedule and its discrete DDPM grid, shared by VP and
+  subVP (which the samplers and losses tell apart by class: subVP is not a
+  VP subclass). Buffers are fp32, built on the device asked for."""
+
+  beta_min: float
+  beta_max: float
+  N: int
+
+  @property
+  def T(self) -> float:
+    return 1.0
+
+  def discrete_betas(self, device=None) -> torch.Tensor:
+    _check_discrete_betas_valid(self)
+    return linspace(self.beta_min / self.N, self.beta_max / self.N, self.N,
+                    device)
+
+  def alphas(self, device=None) -> torch.Tensor:
+    return 1.0 - self.discrete_betas(device)
+
+  def beta_t(self, t: torch.Tensor) -> torch.Tensor:
+    return self.beta_min + t * (self.beta_max - self.beta_min)
+
+  def _log_mean_coeff(self, t: torch.Tensor) -> torch.Tensor:
+    return (-0.25 * t ** 2 * (self.beta_max - self.beta_min)
+            - 0.5 * t * self.beta_min)
+
+  def prior_sampling(self, shape, generator, device):
+    return torch.randn(tuple(shape), generator=generator, device=device)
+
+  def prior_logp(self, z):
+    n = math.prod(z.shape[1:])
+    return (-n / 2.0 * math.log(2 * math.pi)
+            - torch.sum(z.reshape(z.shape[0], -1) ** 2, dim=-1) / 2.0)
+
+  def timestep_index(self, t: torch.Tensor) -> torch.Tensor:
+    return _timestep_index(self, t)
+
+
+@dataclasses.dataclass(frozen=True)
+class VPSDE(_LinearBeta, SDE):
+  """Variance-preserving SDE (DDPM):
+  ``dx = -0.5 beta(t) x dt + sqrt(beta(t)) dW``, beta linear in t."""
+  beta_min: float = 0.1
+  beta_max: float = 20.0
+  N: int = 1000
+
+  def alphas_cumprod(self, device=None) -> torch.Tensor:
+    return torch.cumprod(self.alphas(device), dim=0)
+
+  def sqrt_alphas_cumprod(self, device=None) -> torch.Tensor:
+    return torch.sqrt(self.alphas_cumprod(device))
+
+  def sqrt_1m_alphas_cumprod(self, device=None) -> torch.Tensor:
+    return torch.sqrt(1.0 - self.alphas_cumprod(device))
+
+  def sde(self, x, t):
+    beta_t = self.beta_t(t)
+    return -0.5 * batch_mul(beta_t, x), torch.sqrt(beta_t)
+
+  def marginal_prob(self, x, t):
+    log_mean_coeff = self._log_mean_coeff(t)
+    mean = batch_mul(torch.exp(log_mean_coeff), x)
+    std = torch.sqrt(1.0 - torch.exp(2.0 * log_mean_coeff))
+    return mean, std
+
+  def discretize(self, x, t):
+    """DDPM discretization: ``f = (sqrt(alpha_i) - 1) x``, ``G = sqrt(beta_i)``."""
+    timestep = self.timestep_index(t)
+    beta = self.discrete_betas(t.device)[timestep]
+    alpha = self.alphas(t.device)[timestep]
+    return batch_mul(torch.sqrt(alpha), x) - x, torch.sqrt(beta)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubVPSDE(_LinearBeta, SDE):
+  """Sub-variance-preserving SDE. Its discrete betas and alphas (the linear
+  schedule's) are what the Langevin and ALD correctors read, as in the JAX
+  package; it has no DDPM discretization of its own."""
+  beta_min: float = 0.1
+  beta_max: float = 20.0
+  N: int = 1000
+
+  def sde(self, x, t):
+    beta_t = self.beta_t(t)
+    discount = 1.0 - torch.exp(-2.0 * self.beta_min * t
+                               - (self.beta_max - self.beta_min) * t ** 2)
+    return -0.5 * batch_mul(beta_t, x), torch.sqrt(beta_t * discount)
+
+  def marginal_prob(self, x, t):
+    log_mean_coeff = self._log_mean_coeff(t)
+    mean = batch_mul(torch.exp(log_mean_coeff), x)
+    # No square root: the JAX package and the reference both return the
+    # variance 1 - exp(2 lmc) as "std" here, and the port is held to them.
+    std = 1.0 - torch.exp(2.0 * log_mean_coeff)
+    return mean, std
+
+
 @dataclasses.dataclass(frozen=True)
 class VESDE(SDE):
   """Variance-exploding SDE; ``sigma(t) = sigma_min (sigma_max/sigma_min)^t``."""
@@ -156,7 +278,7 @@ class VESDE(SDE):
 
   def timestep_index(self, t: torch.Tensor) -> torch.Tensor:
     """Sigma index of time ``t``: ``int32(t (N - 1) / T)``, truncated."""
-    return (t * (self.N - 1) / self.T).to(torch.int32).long()
+    return _timestep_index(self, t)
 
   def discretize(self, x, t):
     """SMLD ancestral discretization: ``G = sqrt(sigma_i² - sigma_{i-1}²)``."""
@@ -183,10 +305,11 @@ def sampling_eps(config) -> float:
 def build_sde(config) -> SDE:
   """The SDE named in ``config.training.sde``."""
   name = config.training.sde.lower()
+  m = config.model
+  if name == "vpsde":
+    return VPSDE(beta_min=m.beta_min, beta_max=m.beta_max, N=m.num_scales)
+  if name == "subvpsde":
+    return SubVPSDE(beta_min=m.beta_min, beta_max=m.beta_max, N=m.num_scales)
   if name == "vesde":
-    return VESDE(sigma_min=config.model.sigma_min,
-                 sigma_max=config.model.sigma_max, N=config.model.num_scales)
-  if name in ("vpsde", "subvpsde"):
-    raise NotImplementedError(
-        f"SDE {name} is not ported yet; see ROADMAP.md queue 1 item 2")
+    return VESDE(sigma_min=m.sigma_min, sigma_max=m.sigma_max, N=m.num_scales)
   raise NotImplementedError(f"SDE {name} unknown.")

@@ -27,6 +27,9 @@ NOT_LEAVES = {"__init__.py", "builder.py", "default_cifar10_configs.py",
 LEAVES = sorted(str(p.relative_to(JAX_CONFIGS))
                 for p in JAX_CONFIGS.rglob("*.py") if p.name not in NOT_LEAVES)
 FLAGSHIP = "score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py"
+DDPM_CONFIG = "score_sde_pytorch_tpu_torch/configs/vp/ddpm/cifar10.py"
+DDPM_UNCONDITIONAL = (
+    "score_sde_pytorch_tpu_torch/configs/vp/ddpm/cifar10_unconditional.py")
 TINY = ("model.nf=16", "model.ch_mult=(1,2)", "model.num_res_blocks=1",
         "model.attn_resolutions=(8,)", "data.image_size=16")
 
@@ -186,6 +189,8 @@ def test_unported_data_paths_raise_naming_roadmap(override, tmp_path):
 
 NCSNPP_LEAVES = [rel for rel in LEAVES
                  if jax_config(rel).model.get("name") == "ncsnpp"]
+DDPM_LEAVES = [rel for rel in LEAVES
+               if jax_config(rel).model.get("name") == "ddpm"]
 
 
 @pytest.mark.parametrize("rel", NCSNPP_LEAVES)
@@ -195,13 +200,23 @@ def test_ncsnpp_param_map_equals_the_jax_packages(rel):
       config)
 
 
+@pytest.mark.parametrize("rel", DDPM_LEAVES)
+def test_ddpm_param_map_equals_the_jax_packages(rel):
+  """Row for row, the unconditional model's shape-carrying Dense_0 rows
+  included."""
+  config = configs.read_config(str(configs.CONFIG_DIR / rel))
+  assert interop.ddpm_param_map(config) == jax_interop.ddpm_param_map(config)
+
+
 def fake_params(config, seed=0):
   """A flax params tree with one array per row of the JAX map, shaped by
   the row's transform."""
   rng = np.random.default_rng(seed)
   shapes = {"conv": (3, 3, 2, 5), "dense": (4, 6), "copy": (7,)}
   tree = {}
-  for _, path, kind in jax_interop.ncsnpp_param_map(config):
+  for _, path, kind in jax_interop._param_rows(config):
+    if path is None:
+      continue
     node = tree
     *parents, leaf = path.split("/")
     for p in parents:
@@ -210,9 +225,7 @@ def fake_params(config, seed=0):
   return tree
 
 
-@pytest.mark.parametrize("tiny", [True, False])
-def test_state_dict_equals_the_jax_packages(tiny):
-  config = configs.load_config(FLAGSHIP, TINY if tiny else ())
+def _assert_state_dicts_equal(config):
   params = fake_params(config)
   got = interop.flax_params_to_torch_state_dict(params, config)
   want = jax_interop.flax_params_to_torch_state_dict(params, config)
@@ -222,10 +235,24 @@ def test_state_dict_equals_the_jax_packages(tiny):
     assert np.array_equal(got[key], want[key]), key
 
 
+@pytest.mark.parametrize("tiny", [True, False])
+def test_state_dict_equals_the_jax_packages(tiny):
+  _assert_state_dicts_equal(configs.load_config(FLAGSHIP,
+                                                TINY if tiny else ()))
+
+
+@pytest.mark.parametrize("path", [DDPM_CONFIG, DDPM_UNCONDITIONAL])
+@pytest.mark.parametrize("tiny", [True, False])
+def test_ddpm_state_dict_equals_the_jax_packages(path, tiny):
+  """The unconditional model's unused Dense_0 rows come out as zeros of the
+  torch shape in both."""
+  _assert_state_dicts_equal(configs.load_config(path, TINY if tiny else ()))
+
+
 def test_other_models_raise_naming_roadmap():
   config = configs.read_config(
-      str(configs.CONFIG_DIR / "vp" / "cifar10_ddpmpp.py"))
-  config.model.name = "ddpm"
+      str(configs.CONFIG_DIR / "ve" / "ncsnv2" / "cifar10.py"))
+  assert config.model.name == "ncsnv2_64"
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     interop.flax_params_to_torch_state_dict({}, config)
 

@@ -98,7 +98,7 @@ def test_cli_recipe_runs_with_the_jax_package_blocked(tmp_path):
                 if v is not None and m.split('.')[0] in {JAX_NAMES!r}]
       assert not leaked, leaked
       print('ok')
-      """))
+      """), OMP_NUM_THREADS=1)  # one torch thread: see tests/torch_threads.py
   assert out.strip().endswith("ok")
   assert "Starting training loop at step 2" in (
       tmp_path / "stdout.txt").read_text()
@@ -159,6 +159,106 @@ def test_eval_recipe_runs_with_the_jax_package_blocked(tmp_path):
     assert (tmp_path / "wd" / "eval" / name).is_file(), name
 
 
+VP_SLICE_CONFIGS = ["vp/cifar10_ddpmpp_continuous.py",
+                    "subvp/cifar10_ddpmpp_continuous.py",
+                    "vp/cifar10_ncsnpp_continuous.py", "vp/cifar10_ddpmpp.py",
+                    "vp/ddpm/cifar10.py", "ve/cifar10_ncsnpp.py"]
+
+
+def test_vp_slice_configs_train_and_sample_with_the_jax_package_blocked():
+  """Each config of the VP/subVP slice, at tiny width, builds its model and
+  takes one train step (its own loss: continuous, DDPM or SMLD) and one PC
+  step (its own predictor and corrector), all finite, with jax, flax and
+  the JAX package blocked."""
+  out = run_child(textwrap.dedent(f"""
+      import torch
+      from score_sde_pytorch_tpu_torch import configs, losses, sampling
+      from score_sde_pytorch_tpu_torch import sde as sde_lib
+      from score_sde_pytorch_tpu_torch.models import utils as mutils
+      tiny = ['model.nf=16', 'model.ch_mult=(1,2)', 'model.num_res_blocks=1',
+              'model.attn_resolutions=(8,)', 'data.image_size=16']
+      for rel in {VP_SLICE_CONFIGS!r}:
+        cfg = configs.load_config(
+            'score_sde_pytorch_tpu_torch/configs/' + rel, tiny)
+        model = mutils.create_model(cfg, 'cpu',
+                                    torch.Generator().manual_seed(0))
+        state = losses.init_train_state(cfg, model, 'cpu')
+        sde, tc, sc = sde_lib.build_sde(cfg), cfg.training, cfg.sampling
+        step = losses.get_step_fn(
+            sde, train=True, optimize_fn=losses.optimization_manager(cfg),
+            reduce_mean=tc.reduce_mean, continuous=tc.continuous,
+            likelihood_weighting=tc.likelihood_weighting)
+        loss = step(state, torch.rand(2, 3, 16, 16), state['generator'])
+        score_fn = mutils.get_score_fn(sde, model, continuous=tc.continuous)
+        predictor = sampling.get_predictor(sc.predictor)(sde, score_fn)
+        corrector = sampling.get_corrector(sc.corrector)(
+            sde, score_fn, sc.snr, sc.n_steps_each)
+        g = torch.Generator().manual_seed(1)
+        x = sde.prior_sampling((2, 3, 16, 16), g, 'cpu')
+        t = torch.full((2,), sde.T)
+        with torch.no_grad():
+          x, _ = corrector(x, t, torch.randn((sc.n_steps_each, 2, 3, 16, 16),
+                                             generator=g))
+          x, x_mean = predictor(x, t, torch.randn((2, 3, 16, 16),
+                                                  generator=g))
+        assert torch.isfinite(loss) and torch.isfinite(x_mean).all(), rel
+        print(rel, type(sde).__name__, sc.predictor, float(loss))
+      leaked = [m for m, v in sys.modules.items()
+                if v is not None and m.split('.')[0] in {JAX_NAMES!r}]
+      assert not leaked, leaked
+      print('ok')
+      """), OMP_NUM_THREADS=1)
+  assert out.strip().endswith("ok")
+  assert out.count(" VPSDE ") == 4 and " SubVPSDE " in out
+
+
+def test_vp_cli_recipe_runs_with_the_jax_package_blocked(tmp_path):
+  """The tiny VP CLI recipe on vp/cifar10_ddpmpp_continuous.py:
+  train (2 steps, an Euler–Maruyama snapshot grid), sample, and eval with
+  the loss and bits/dim, in a child where the JAX package, jax and flax
+  cannot be imported."""
+  tiny = ["--config.model.nf=16", "--config.model.ch_mult=(1,2)",
+          "--config.model.num_res_blocks=1",
+          "--config.model.attn_resolutions=(8,)",
+          "--config.data.image_size=16", "--config.model.num_scales=4"]
+  common = ["--config", "score_sde_pytorch_tpu_torch/configs/vp/"
+            "cifar10_ddpmpp_continuous.py", "--workdir", str(tmp_path),
+            "--device", "cpu"] + tiny
+  train = ["--mode", "train", "--config.training.batch_size=4",
+           "--config.training.n_jitted_steps=1", "--config.training.n_iters=2",
+           "--config.training.snapshot_freq=2"]
+  evaluate = ["--mode", "eval", "--config.eval.begin_ckpt=1",
+              "--config.eval.end_ckpt=1", "--config.eval.batch_size=4",
+              "--config.eval.enable_bpd=True",
+              "--config.eval.bpd_dataset=train", "--config.data.dataset=NPZ",
+              f"--config.data.data_dir={tmp_path / 'data'}"]
+  out = run_child(textwrap.dedent(f"""
+      import os
+      import numpy as np
+      from score_sde_pytorch_tpu_torch import main
+      main.main({common + train!r})
+      rounds = main.main({common + ["--mode", "sample",
+                                    "--config.eval.batch_size=2"]!r})
+      assert [r['nfe'] for r in rounds] == [8], rounds
+      os.makedirs({str(tmp_path / 'data')!r})
+      for split in ('train', 'test'):  # one eval batch each
+        np.savez({str(tmp_path / 'data')!r} + f'/{{split}}.npz',
+                 images=np.random.default_rng(0).integers(
+                     0, 256, (4, 16, 16, 3), dtype=np.uint8))
+      (record,) = main.main({common + evaluate!r})
+      assert np.isfinite(record['mean_loss']) and np.isfinite(record['bpd'])
+      leaked = [m for m, v in sys.modules.items()
+                if v is not None and m.split('.')[0] in {JAX_NAMES!r}]
+      assert not leaked, leaked
+      print('ok')
+      """), OMP_NUM_THREADS=1)
+  assert out.strip().endswith("ok")
+  for sub in ("checkpoints/checkpoint_1.pth", "samples/iter_2/sample.png",
+              "generated/samples_0.npz", "eval/ckpt_1_loss.npz",
+              "eval/train_ckpt_1_bpd.npz"):
+    assert (tmp_path / sub).is_file(), sub
+
+
 def test_jax_package_config_paths_load_the_ports_copy():
   """A --config path into the JAX package's tree loads the port's copy at
   the same relative path; a path with no copy there raises."""
@@ -215,13 +315,12 @@ def test_unsupported_settings_raise(override):
 
 @pytest.mark.parametrize("mode", ["eval"])
 def test_train_and_eval_modes_raise_naming_roadmap(mode, tmp_path):
-  """--mode eval is ported; a sampler it cannot run yet raises naming
-  ROADMAP before any checkpoint is read."""
+  """--mode eval and every sampler are ported; a model that is not yet
+  (NCSNv2) raises naming ROADMAP before any checkpoint is read."""
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     main.main(["--config", FLAGSHIP, "--workdir", str(tmp_path),
                "--mode", mode, "--device", "cpu",
-               "--config.eval.enable_sampling=True",
-               "--config.sampling.method=heun", "--config.model.nf=16",
+               "--config.model.name=ncsnv2_64", "--config.model.nf=16",
                "--config.model.ch_mult=(1,2)",
                "--config.model.num_res_blocks=1",
                "--config.model.attn_resolutions=(8,)",

@@ -294,7 +294,7 @@ def test_flagship_state_dict_matches_jax_shapes():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("embedding_type", "positional"), ("progressive", "output_skip"),
+    ("conditional", False), ("progressive", "output_skip"),
     ("progressive_input", "input_skip"), ("resblock_type", "ddpm")])
 def test_unported_branches_raise(key, value):
   cfg = tiny_flagship_config()

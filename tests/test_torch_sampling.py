@@ -23,6 +23,7 @@ from score_sde_pytorch_tpu_torch import interop
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from tests.test_torch_ncsnpp import (FLAGSHIP, TINY, init_params, nchw, nhwc,
                                      tiny_flagship_config)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jax_sampling = importlib.import_module("score_sde_pytorch_tpu.sampling")
 
@@ -53,11 +54,20 @@ def test_discrete_sigmas_match_jax():
 
 
 def test_vp_and_subvp_raise_naming_roadmap():
+  """VP and subVP were not ported before; build_sde now builds them from
+  the config's beta range and num_scales, and subVP is no VP subclass
+  (the samplers' and losses' dispatch relies on it)."""
   cfg = tiny_flagship_config()
-  for name in ("vpsde", "subvpsde"):
+  for name, cls in (("vpsde", sde_lib.VPSDE), ("subvpsde", sde_lib.SubVPSDE)):
     cfg.training.sde = name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      sde_lib.build_sde(cfg)
+    sde = sde_lib.build_sde(cfg)
+    assert type(sde) is cls
+    assert (sde.beta_min, sde.beta_max, sde.N) == (
+        cfg.model.beta_min, cfg.model.beta_max, cfg.model.num_scales)
+  assert not issubclass(sde_lib.SubVPSDE, sde_lib.VPSDE)
+  cfg.training.sde = "rfsde"
+  with pytest.raises(NotImplementedError, match="unknown"):
+    sde_lib.build_sde(cfg)
 
 
 def test_vesde_functions_match_jax():
@@ -245,13 +255,38 @@ def test_predictor_only_sampling_with_corrector_none():
 
 
 def test_unported_samplers_raise_naming_roadmap():
-  cfg = tiny_flagship_config()
-  model = mutils.create_model(cfg, "cpu", torch.Generator().manual_seed(0))
-  for key, value in (("method", "heun"), ("predictor", "euler_maruyama"),
-                     ("corrector", "ald")):
+  """Every sampling method is ported: get_sampling_fn builds each of pc
+  (every predictor and corrector), ode, heun and dpmpp, and each samples a
+  finite batch with its NFE; an unknown name raises as in the JAX
+  package."""
+  model = mutils.create_model(tiny_flagship_config(), "cpu",
+                              torch.Generator().manual_seed(0))
+  settings = [dict(method="pc", predictor=p, corrector=c)
+              for p in ("euler_maruyama", "reverse_diffusion",
+                        "ancestral_sampling", "none")
+              for c in ("langevin", "ald", "none")]
+  settings += [dict(method="ode"), dict(method="heun", heun_steps=1),
+               dict(method="dpmpp", dpmpp_steps=2),
+               dict(method="dpmpp", dpmpp_steps=2, dpmpp_stochastic=True)]
+  for setting in settings:
+    cfg = tiny_flagship_config()
+    cfg.model.num_scales = 2
+    for key, value in setting.items():
+      cfg.sampling[key] = value
+    sampler = sampling.get_sampling_fn(cfg, sde_lib.build_sde(cfg), model,
+                                       (1, 16, 16, 3), lambda v: v,
+                                       device="cpu")
+    samples, nfe = sampler(torch.Generator().manual_seed(0))
+    assert samples.shape == (1, 16, 16, 3), setting
+    assert torch.isfinite(samples).all(), setting
+    want = {"pc": 4, "heun": 3, "dpmpp": 3}.get(setting["method"])
+    assert want is None or nfe == want, (setting, nfe)
+  for key, value, error in (("method", "rk4", ValueError),
+                            ("predictor", "leapfrog", KeyError),
+                            ("corrector", "hmc", KeyError)):
     bad = tiny_flagship_config()
     bad.sampling[key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=value):
       sampling.get_sampling_fn(bad, sde_lib.build_sde(bad), model,
                                (1, 16, 16, 3), lambda v: v, device="cpu")
 

@@ -261,11 +261,36 @@ def test_eval_step_uses_ema_weights_and_leaves_state(pair):
   assert got.item() == want.item()
 
 
-def test_discrete_loss_raises_naming_roadmap():
-  """training.continuous=False on the VE SDE is the SMLD loss, not ported."""
-  cfg = tiny_config()
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    losses.get_step_fn(sde_lib.build_sde(cfg), train=False, continuous=False)
+def test_discrete_loss_raises_naming_roadmap(monkeypatch):
+  """training.continuous=False on the VE SDE is the SMLD loss, which no
+  longer raises: the eval step (EMA weights) of ve/cifar10_ncsnpp.py's
+  tiny model, labels and z re-derived from the JAX step's key, gives the
+  JAX eval step's loss (1e-5 relative)."""
+  from tests.test_torch_ddpm import VE_NCSNPP, tiny_pair
+  from tests.test_torch_vp import jax_labels_z
+  cfg, model_def, params, model = tiny_pair(
+      VE_NCSNPP, "model.dropout=0.0", "model.num_scales=10")
+  sde_j = jax_sde.VESDE(sigma_min=cfg.model.sigma_min,
+                        sigma_max=cfg.model.sigma_max, N=cfg.model.num_scales)
+  state = jax_losses.TrainState(
+      step=jnp.zeros((), jnp.int32), params=params, opt_state=None,
+      ema=jax_ema.init(params, decay=cfg.model.ema_rate),
+      rng=jax.random.PRNGKey(13))
+  eval_j = jax_losses.get_step_fn(sde_j, model_def, train=False,
+                                  reduce_mean=False, continuous=False,
+                                  prng_impl="threefry2x32")
+  batch = batch_nhwc()
+  _, want = jax.jit(eval_j)(state, jnp.asarray(batch))
+  labels, z = jax_labels_z(jax.random.split(state.rng)[1], batch.shape,
+                           sde_j.N)
+  draws = [(torch.from_numpy(labels).long(), nchw(z))]
+  monkeypatch.setattr(losses, "draw_labels_z", lambda *a: draws.pop(0))
+  step = losses.get_step_fn(sde_lib.build_sde(cfg), train=False,
+                            reduce_mean=False, continuous=False)
+  got = step(losses.init_train_state(cfg, model, "cpu"), nchw(batch),
+             torch.Generator())
+  assert not draws
+  np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
 
 
 TRAIN_FLAGS = ["--config.training.batch_size=4",
