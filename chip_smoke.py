@@ -6,7 +6,7 @@ NVIDIA GPU. Run it from the root of a checkout:
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and imports nothing of
 JAX or of the JAX package. Phases, each of which fails the run if it fails
-(about 8 minutes on one H100):
+(about 11 minutes on one H100):
 
 1. the card's name and power limit; the kernels built from
    score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
@@ -22,6 +22,8 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails
    (and autograd through the plain attention) at the train path's shapes
    and a few more, the same three cases, bitwise repeatability, and times
    (with forward + backward of the kernels and of the library's call);
+   then [kernel-512] and [kernel-bwd-512], both again at C = 512 (the
+   256² DDPM's and the 1024² NCSN++'s attention) and C = 384;
 4. [fused-act] the fused bias + leaky ReLU kernels (forward, backward)
    against their plain versions, fp32 and bf16, and times;
 5. [forward] the full-width flagship NCSN++
@@ -68,13 +70,31 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails
 13. [samplers]: PC reverse diffusion + Langevin, PC none + ALD, heun and
    DPM-Solver++ (deterministic and stochastic) on the DDPM++ at batch 64;
 14. [vp-profile]: Euler-Maruyama at batch 64: ms per network evaluation,
-   the idle share and the attention kernel's share of device time.
+   the idle share and the attention kernel's share of device time;
+15. [ddpm-256*]: the full-width vp/ddpm/church.py (attention at C = 512):
+   forward and DDPM-loss gradient through the kernels against the plain
+   attention (TF32 off), ``main --mode train`` at batch 8 for 5 steps and
+   ``--mode sample`` (ancestral, num_scales 25) on its checkpoint;
+16. [hires-*], [controllable]: the full-width
+   ve/church_ncsnpp_continuous.py (output and input pyramids, remat):
+   ``main --mode sample``; at unit gain, inpainting and colorization at
+   batch 4 (known half and gray channel kept within 1e-3), and the forward
+   and gradient through the kernels against the plain attention (TF32
+   off); the multiattn file's forward (attention at 32² too); ``main
+   --mode train`` at its batch of 64 for 5 steps and a resume to 10; and
+   the train step's peak memory with remat at batch 64 and without it at
+   the largest batch that fits;
+17. [hires-1024]: the full-width ve/celebahq_ncsnpp_continuous.py (1024²,
+   attention at C = 512): forward through the kernels against the plain
+   attention, and the train step with remat at its batch of 8 with its
+   peak memory, driven directly.
 
 Network evaluations are counted with a forward hook (the PC sampler's NFE
 is N·(n_steps + 1) whatever the corrector), and every run above holds the
-attention launches to 6 per NCSN++/DDPM++ evaluation and 4 per DDPM
-evaluation, and the backward calls to 6 per train step and per bits/dim
-drift evaluation.
+attention launches per evaluation to 6 (NCSN++/DDPM++ at 32²), 4 (the
+DDPM at 32² and 256², the church NCSN++), 7 (multiattn) and 3 (1024²),
+and the backward calls to as many per train step (remat recomputes the
+resblocks, not the attention) and per bits/dim drift evaluation.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
@@ -151,6 +171,27 @@ SAMPLERS_BATCH = 64
 SAMPLERS_SCALES = 25         # discrete VP rules need num_scales > beta_max
 FLOW_STEPS = 10              # heun and dpmpp steps
 VP_PROFILE_SCALES = 20       # Euler-Maruyama: 20 network evaluations
+# C = 512 (the 256² DDPM's and the 1024² NCSN++'s attention) and a C that
+# is neither 256 nor 512.
+ATTN_512_SHAPES = [(64, 256, 512), (8, 256, 512), (8, 64, 512),
+                   (2, 256, 512), (4, 200, 512), (1, 1024, 384)]
+CHURCH_CONFIG = os.path.join(CONFIGS, "ve", "church_ncsnpp_continuous.py")
+MULTIATTN_CONFIG = os.path.join(CONFIGS, "tpu",
+                                "church_ncsnpp_continuous_multiattn.py")
+DDPM256_CONFIG = os.path.join(CONFIGS, "vp", "ddpm", "church.py")
+HQ1024_CONFIG = os.path.join(CONFIGS, "ve", "celebahq_ncsnpp_continuous.py")
+HIRES_ATTN_PER_FORWARD = 4   # church: 2 at 16² down, the 4² bottleneck, 1 up
+MULTIATTN_PER_FORWARD = 7    # and 2 down + 1 up at 32² ([B, 1024, 256])
+DDPM256_ATTN_PER_FORWARD = 4  # 3 at 16² ([B, 256, 512]) and 1 at 8²
+HQ1024_ATTN_PER_FORWARD = 3  # 2 at 16² ([B, 256, 512]) and 1 at 8²
+HIRES_BATCH = 4              # 256² and 1024² forwards and samplers
+HIRES_GRAD_BATCH = 2
+HIRES_SCALES = 10            # num_scales cut from 2000 (church) for the time
+HIRES_TRAIN_STEPS = 5        # one n_jitted_steps call, then a resume to 10
+DDPM256_TRAIN_BATCH = 8      # a batch that fits without remat (config: 64)
+DDPM256_SCALES = 25          # discrete VP rules need num_scales > beta_max
+HQ1024_TRAIN_BATCH = 8       # the config's own
+NO_REMAT_BATCHES = (64, 32, 16, 8, 4)
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,6 +226,20 @@ def card() -> str:
   return subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _tf32_off(torch):
+  """Turns TF32 off for matmuls and cuDNN; returns PyTorch's settings."""
+  defaults = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  return defaults
+
+
+def _tf32_restore(torch, defaults) -> None:
+  (torch.backends.cuda.matmul.allow_tf32,
+   torch.backends.cudnn.allow_tf32) = defaults
 
 
 def time_ms(torch, fn, iters: int = 50) -> float:
@@ -265,9 +320,10 @@ def sdpa_backend(torch, fn) -> str:
   return "; ".join(n[:60] for n in names) or "not measured"
 
 
-def phase_kernel(torch, attn) -> dict:
-  """Kernel vs plain attention on standard-normal q, k, v. Returns the
-  record of the path's first shape.
+def phase_kernel(torch, attn, shapes=ATTN_SHAPES,
+                 tag: str = "[kernel]") -> dict:
+  """Kernel vs plain attention on standard-normal q, k, v at ``shapes``.
+  Returns the record of the first shape.
 
   - fp32 (TF32 off): max |kernel - plain| <= 2e-5.
   - bf16: error against the fp64 result no worse than the plain bf16
@@ -285,7 +341,7 @@ def phase_kernel(torch, attn) -> dict:
   gen = torch.Generator(device="cuda").manual_seed(0)
   worst = 0.0
   record = None
-  for b, n, c in ATTN_SHAPES:
+  for b, n, c in shapes:
     q, k, v = (torch.randn(b, n, c, device="cuda", generator=gen)
                for _ in range(3))
     out = attn.attention(q, k, v)
@@ -331,18 +387,18 @@ def phase_kernel(torch, attn) -> dict:
     library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4))
     ms_again = time_ms(torch, lambda: attn.attention(q, k, v))
     bound_ms, bound_by = bound(4.0 * b * n * n * c, 4.0 * b * n * c * 4)
-    say(f"[kernel] B,N,C={b},{n},{c}: fp32 kernel-plain {err:.3g}, vs fp64 "
+    say(f"{tag} B,N,C={b},{n},{c}: fp32 kernel-plain {err:.3g}, vs fp64 "
         f"kernel {err_exact:.3g} plain {err_plain_exact:.3g} | bf16 vs fp64 "
         f"kernel {err_bf16:.3g} plain {err_bf16_plain:.3g} | x30 kernel-plain "
         f"{err30:.3g}, vs fp64 kernel {err30_exact:.3g} plain "
         f"{err30_plain_exact:.3g}")
-    say(f"[kernel]   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) plain "
+    say(f"{tag}   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) plain "
         f"{plain_ms:.4f} sdpa {library_ms:.4f} bound {bound_ms:.4f} "
         f"({bound_by}); share of bound {bound_ms / ms:.3f}")
     if record is None:
       record = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
-      say(f"[kernel]   sdpa backend: "
+      say(f"{tag}   sdpa backend: "
           f"{sdpa_backend(torch, lambda: sdpa(q4, k4, v4))}")
   record["max_abs_err"] = worst
   return record
@@ -378,13 +434,15 @@ def _labels(config, t):
 
 
 def phase_forward(torch, attn, config, model, tag: str = "[forward]",
-                  per_forward: int = ATTN_PER_FORWARD) -> None:
+                  per_forward: int = ATTN_PER_FORWARD,
+                  batch: int = SMOKE_BATCH, cpu_batch: int = 2) -> None:
   """The full-width forward through the kernel against through the plain
-  attention and against the CPU, and its attention launches."""
+  attention and (its first ``cpu_batch`` images) against the CPU, and its
+  attention launches."""
   gen = torch.Generator(device="cuda").manual_seed(1)
   size = config.data.image_size
-  x = torch.rand(SMOKE_BATCH, 3, size, size, device="cuda", generator=gen)
-  t = torch.rand(SMOKE_BATCH, device="cuda", generator=gen)
+  x = torch.rand(batch, 3, size, size, device="cuda", generator=gen)
+  t = torch.rand(batch, device="cuda", generator=gen)
   labels = _labels(config, t)
   with torch.no_grad():
     before = attn.flash_attention_launches
@@ -393,16 +451,16 @@ def phase_forward(torch, attn, config, model, tag: str = "[forward]",
     launches = attn.flash_attention_launches - before
     with mock.patch.object(attn, "attention", attn.dense_attention):
       through_plain = model(x, labels)
-      on_cpu = model.to("cpu")(x[:2].cpu(), labels[:2].cpu())
+      on_cpu = model.to("cpu")(x[:cpu_batch].cpu(), labels[:cpu_batch].cpu())
       model.to("cuda")
   check(launches == per_forward,
         f"{tag} {launches} kernel launches in one forward, want {per_forward}")
   check(bool(torch.isfinite(through_kernel).all()), f"{tag} not finite")
   scale = through_plain.abs().max().item()
   rel = (through_kernel - through_plain).abs().max().item() / scale
-  rel_cpu = ((through_kernel[:2].cpu() - on_cpu).abs().max().item()
+  rel_cpu = ((through_kernel[:cpu_batch].cpu() - on_cpu).abs().max().item()
              / on_cpu.abs().max().item())
-  say(f"{tag} full-width {config.model.name} B={SMOKE_BATCH}: max|out| "
+  say(f"{tag} full-width {config.model.name} B={batch}: max|out| "
       f"{scale:.4g}, kernel vs plain rel err {rel:.3g}, card vs CPU rel err "
       f"{rel_cpu:.3g} ({launches} kernel launches)")
   check(rel <= FORWARD_RTOL, f"{tag} kernel vs plain rel err {rel:.3g}")
@@ -453,9 +511,10 @@ def _max_err(a, b) -> float:
   return (a.double() - b.double()).abs().max().item()
 
 
-def phase_kernel_bwd(torch, attn) -> dict:
-  """Backward kernels vs the plain backward on standard-normal q, k, v, dO.
-  Returns the record of the train path's shape (128, 256, 256).
+def phase_kernel_bwd(torch, attn, shapes=BWD_SHAPES,
+                     tag: str = "[kernel-bwd]") -> dict:
+  """Backward kernels vs the plain backward on standard-normal q, k, v, dO
+  at ``shapes``. Returns the record of the first shape.
 
   - fp32 (TF32 off): dq, dk, dv within 5e-4 (absolute and relative) of
     ``dense_attention_backward`` and of autograd through
@@ -481,7 +540,7 @@ def phase_kernel_bwd(torch, attn) -> dict:
     return all(bool(((g - w).abs() <= BWD_TOL + BWD_TOL * w.abs()).all())
                for g, w in zip(got, want))
 
-  for b, n, c in BWD_SHAPES:
+  for b, n, c in shapes:
     q, k, v, dout = (torch.randn(b, n, c, device="cuda", generator=gen)
                      for _ in range(4))
     got = through_kernel(q, k, v, dout)
@@ -545,18 +604,18 @@ def phase_kernel_bwd(torch, attn) -> dict:
         q, k, v, out, lse, dout), iters=20)
     bound_ms, bound_by = bound(10.0 * b * n * n * c,
                                (8.0 * b * n * c + b * n) * 4)
-    say(f"[kernel-bwd] B,N,C={b},{n},{c}: fp32 kernel-plain {err:.3g}, "
+    say(f"{tag} B,N,C={b},{n},{c}: fp32 kernel-plain {err:.3g}, "
         f"kernel-autograd {err_auto:.3g} | bf16 vs fp64 kernel {err16:.3g} "
         f"plain {err16_plain:.3g} | x30 vs fp64 kernel {err30:.3g} plain "
         f"{err30_plain:.3g} | bitwise repeatable")
-    say(f"[kernel-bwd]   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) "
+    say(f"{tag}   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) "
         f"plain {plain_ms:.4f} bound {bound_ms:.4f} ({bound_by}); share of "
         f"bound {bound_ms / ms:.3f} | forward+backward: kernels "
         f"{both_ms:.4f} sdpa {sdpa_both_ms:.4f}")
     if record is None:
       record = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by}
-      say(f"[kernel-bwd]   sdpa backend (forward+backward): "
+      say(f"{tag}   sdpa backend (forward+backward): "
           + sdpa_backend(torch, lambda: torch.autograd.grad(
               sdpa(*wide), leaves, dout4)))
   record["max_abs_err"] = worst
@@ -613,51 +672,64 @@ def phase_fused_act(torch, act) -> tuple:
 
 
 def phase_grad(torch, attn, config, model, sde=None,
-               tag: str = "[grad]") -> None:
-  """Loss and parameter gradients of the full-width model with injected t
-  and z (dropout off), for ``sde`` (default: the config's): through the
+               tag: str = "[grad]", per_forward: int = ATTN_PER_FORWARD,
+               batch_size: int = GRAD_BATCH) -> None:
+  """Loss and parameter gradients of the full-width model with injected
+  draws (dropout off), for ``sde`` (default: the config's): through the
   kernels vs through the plain attention, and the loss on the card vs on
-  the CPU."""
+  the CPU. The loss is the config's: the continuous SDE loss, or the DDPM
+  loss at integer timesteps of a discrete VP config. Under ``model.remat``
+  the resblocks are recomputed in the backward and the attention is not:
+  ``per_forward`` forward launches and backward calls per gradient."""
   from score_sde_pytorch_tpu_torch import losses, sde as sde_lib
   sde = sde or sde_lib.build_sde(config)
-  core = losses.get_sde_loss_core(
-      sde, train=False,
-      reduce_mean=config.training.reduce_mean,
-      likelihood_weighting=config.training.likelihood_weighting)
   gen = torch.Generator(device="cuda").manual_seed(4)
   size = config.data.image_size
-  batch = torch.rand(GRAD_BATCH, 3, size, size, device="cuda", generator=gen)
-  t, z = losses.draw_t_z(batch, gen, 1e-5, 1.0)
+  batch = torch.rand(batch_size, 3, size, size, device="cuda", generator=gen)
+  if config.training.continuous:
+    core = losses.get_sde_loss_core(
+        sde, train=False,
+        reduce_mean=config.training.reduce_mean,
+        likelihood_weighting=config.training.likelihood_weighting)
+    draws = losses.draw_t_z(batch, gen, 1e-5, 1.0)
+  else:
+    core = losses.get_ddpm_loss_core(
+        sde, train=False, reduce_mean=config.training.reduce_mean)
+    draws = losses.draw_labels_z(batch, gen, sde.N)
   params = [p for p in model.parameters() if p.requires_grad]
 
   def loss_and_grads():
     model.zero_grad(set_to_none=True)
-    loss = core(model, batch, t, z)
+    loss = core(model, batch, *draws)
     loss.backward()
     return loss.item(), [p.grad.clone() for p in params]
 
+  attn.flash_attention_launches = 0
   attn.flash_attention_backward_launches = 0
   loss, grads = loss_and_grads()
   torch.cuda.synchronize()
   launches = attn.flash_attention_backward_launches
+  forward_launches = attn.flash_attention_launches
   with mock.patch.object(attn, "attention", attn.dense_attention):
     loss_plain, grads_plain = loss_and_grads()
   model.zero_grad(set_to_none=True)
   with torch.no_grad():
-    loss_cpu = core(model.to("cpu"), batch.cpu(), t.cpu(), z.cpu()).item()
+    loss_cpu = core(model.to("cpu"), batch.cpu(),
+                    *(d.cpu() for d in draws)).item()
   model.to("cuda")
   scale = max(g.abs().max().item() for g in grads_plain)
   rel = max((g - w).abs().max().item() for g, w in zip(grads, grads_plain))
   rel /= scale
   rel_cpu = abs(loss - loss_cpu) / abs(loss_cpu)
   say(f"{tag} full-width {config.model.name}, {type(sde).__name__} loss, "
-      f"B={GRAD_BATCH}: loss {loss:.6g} (plain "
+      f"B={batch_size}: loss {loss:.6g} (plain "
       f"attention {loss_plain:.6g}, CPU {loss_cpu:.6g}); max|dg|/max|g| "
       f"kernel vs plain {rel:.3g} over {len(params)} tensors; loss card vs "
-      f"CPU rel {rel_cpu:.3g}; {launches} backward calls")
-  check(launches == ATTN_PER_FORWARD,
-        f"{tag} {launches} backward calls in one step, want "
-        f"{ATTN_PER_FORWARD}")
+      f"CPU rel {rel_cpu:.3g}; {forward_launches} forward launches, "
+      f"{launches} backward calls (remat {config.model.get('remat', False)})")
+  check((forward_launches, launches) == (per_forward, per_forward),
+        f"{tag} {forward_launches} forward launches and {launches} backward "
+        f"calls in one gradient, want {per_forward} each")
   check(math.isfinite(loss) and rel <= GRAD_RTOL,
         f"{tag} gradients kernel vs plain: {rel:.3g} > {GRAD_RTOL}")
   check(rel_cpu <= LOSS_RTOL, f"{tag} loss card vs CPU rel {rel_cpu:.3g}")
@@ -787,35 +859,42 @@ def phase_sample_profile(torch, model, card_line: str, config_path=FLAGSHIP,
   return evals
 
 
-def phase_train_time(torch, config, card_line: str,
-                     tag: str = "[train]") -> None:
-  """The train step at batch 128 as the loop runs it (one n-step call of
-  ``training.n_jitted_steps`` steps at a time): wall ms per step over
-  TIMED_STEPS steps, images/s, peak device memory, and a profiled window
-  of PROFILED_STEPS steps for the device's busy time by kernel family."""
+def _train_step(torch, config, batch_size: int):
+  """``step(n)``: n train steps of a fresh seeded model of ``config`` on one
+  random batch of ``batch_size`` on the card, then a synchronize."""
   from score_sde_pytorch_tpu_torch import losses, sde as sde_lib
   from score_sde_pytorch_tpu_torch.models import utils as mutils
-  device = torch.device("cuda")
-  model = mutils.create_model(config, device,
+  model = mutils.create_model(config, "cuda",
                               torch.Generator().manual_seed(config.seed))
-  state = losses.init_train_state(config, model, device)
+  state = losses.init_train_state(config, model, "cuda")
   tcfg = config.training
   step_fn = losses.get_step_fn(
       sde_lib.build_sde(config), train=True,
       optimize_fn=losses.optimization_manager(config),
       reduce_mean=tcfg.reduce_mean, continuous=tcfg.continuous,
       likelihood_weighting=tcfg.likelihood_weighting)
-  gen = torch.Generator(device=device).manual_seed(5)
   size = config.data.image_size
-  batch = torch.rand(TRAIN_BATCH, 3, size, size, device=device, generator=gen)
+  batch = torch.rand(batch_size, 3, size, size, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(5))
 
   def steps(n):
     for _ in range(n):
-      step_fn(state, batch, state["generator"])
+      loss = step_fn(state, batch, state["generator"])
     torch.cuda.synchronize()
+    check(math.isfinite(loss.item()), f"train step loss {loss.item()}")
 
+  return steps
+
+
+def phase_train_time(torch, config, card_line: str,
+                     tag: str = "[train]") -> None:
+  """The train step at batch 128 as the loop runs it (one n-step call of
+  ``training.n_jitted_steps`` steps at a time): wall ms per step over
+  TIMED_STEPS steps, images/s, peak device memory, and a profiled window
+  of PROFILED_STEPS steps for the device's busy time by kernel family."""
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
+  steps = _train_step(torch, config, TRAIN_BATCH)
   steps(3)  # warm-up: cuDNN's first-call set-up, Adam's state
   start = time.perf_counter()
   steps(TIMED_STEPS)
@@ -1245,40 +1324,6 @@ def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
   return launches
 
 
-def phase_vp_sample(torch, attn, workdir: str, card_line: str) -> int:
-  """``main --mode sample`` in process on [vp-train]'s checkpoint:
-  Euler-Maruyama, one network evaluation a step, SMOKE_ROUNDS rounds of
-  SMOKE_BATCH. Returns the forward kernel launches."""
-  import numpy as np
-  from score_sde_pytorch_tpu_torch import main
-  attn.flash_attention_launches = 0
-  with network_evals(torch) as evals:
-    rounds = main.main(["--config", VP_CONFIG, "--workdir", workdir,
-                        "--mode", "sample", "--num_samples",
-                        str(SMOKE_BATCH * SMOKE_ROUNDS),
-                        f"--config.model.num_scales={SMOKE_SCALES}",
-                        f"--config.eval.batch_size={SMOKE_BATCH}"])
-  launches = attn.flash_attention_launches
-  for r in range(SMOKE_ROUNDS):
-    samples = np.load(os.path.join(workdir, "generated",
-                                   f"samples_{r}.npz"))["samples"]
-    check(samples.shape == (SMOKE_BATCH, 32, 32, 3),
-          f"[vp-sample] samples_{r}.npz {samples.shape}")
-  want = SMOKE_SCALES * SMOKE_ROUNDS
-  check(evals[0] == want, f"[vp-sample] {evals[0]} evaluations, want {want}")
-  check(launches == ATTN_PER_FORWARD * want,
-        f"[vp-sample] {launches} launches, want {ATTN_PER_FORWARD} x {want}")
-  for r, rec in enumerate(rounds):
-    say(f"[vp-sample] round {r}: {rec['samples']} samples in "
-        f"{rec['seconds']:.3f} s, reported NFE {rec['nfe']}, "
-        f"{SMOKE_SCALES} network evaluations: "
-        f"{rec['seconds'] * 1e3 / SMOKE_SCALES:.3f} ms/evaluation at batch "
-        f"{SMOKE_BATCH} ({card_line})")
-  say(f"[vp-sample] {launches} kernel launches = {ATTN_PER_FORWARD} x "
-      f"{evals[0]} network evaluations")
-  return launches
-
-
 def phase_vp_eval(torch, attn, workdir: str, card_line: str) -> tuple:
   """``main --mode eval`` in process on [vp-train]'s checkpoint_1 with the
   loss and bits/dim stages on the small ``.npz`` test split of [eval].
@@ -1328,8 +1373,7 @@ def phase_ddpm(torch, attn, card_line: str) -> int:
   plain attention and the CPU, then (PyTorch's defaults) ``main --mode
   sample`` with ancestral sampling, 4 attention calls per evaluation.
   Returns the sample run's forward kernel launches."""
-  import numpy as np
-  from score_sde_pytorch_tpu_torch import checkpoint, configs, main
+  from score_sde_pytorch_tpu_torch import checkpoint, configs
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   config = configs.load_config(DDPM_CONFIG,
@@ -1341,40 +1385,18 @@ def phase_ddpm(torch, attn, card_line: str) -> int:
     checkpoint.save_checkpoint(checkpoint.numbered_path(workdir, 1), model,
                                config, step=1)
     unit_gain_(torch, model, layers, seed=config.seed)
-    defaults = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    defaults = _tf32_off(torch)
     try:
       phase_forward(torch, attn, config, model, tag="[ddpm]",
                     per_forward=DDPM_ATTN_PER_FORWARD)
     finally:
-      (torch.backends.cuda.matmul.allow_tf32,
-       torch.backends.cudnn.allow_tf32) = defaults
+      _tf32_restore(torch, defaults)
     del model
-    attn.flash_attention_launches = 0
-    with network_evals(torch) as evals:
-      (rec,) = main.main(["--config", DDPM_CONFIG, "--workdir", workdir,
-                          "--mode", "sample",
-                          f"--config.model.num_scales={SMOKE_SCALES}",
-                          f"--config.eval.batch_size={SMOKE_BATCH}"])
-    launches = attn.flash_attention_launches
-    samples = np.load(os.path.join(workdir, "generated",
-                                   "samples_0.npz"))["samples"]
-  check(samples.shape == (SMOKE_BATCH, 32, 32, 3),
-        f"[ddpm] samples {samples.shape}")
-  check(evals[0] == SMOKE_SCALES,
-        f"[ddpm] {evals[0]} network evaluations, want {SMOKE_SCALES}")
-  check(launches == DDPM_ATTN_PER_FORWARD * SMOKE_SCALES,
-        f"[ddpm] {launches} launches, want {DDPM_ATTN_PER_FORWARD} x "
-        f"{SMOKE_SCALES}")
-  say(f"[ddpm] {n_params} parameters; main --mode sample, ancestral "
-      f"sampling (discrete VP, num_scales {SMOKE_SCALES}) at batch "
-      f"{SMOKE_BATCH}: {rec['seconds']:.3f} s, "
-      f"{rec['seconds'] * 1e3 / evals[0]:.3f} ms/evaluation ({card_line}); "
-      f"{launches} kernel launches = {DDPM_ATTN_PER_FORWARD} x {evals[0]} "
-      f"evaluations")
-  return launches
+    say(f"[ddpm] {n_params} parameters; ancestral sampling (discrete VP)")
+    return phase_main_sample(
+        torch, attn, DDPM_CONFIG, workdir,
+        [f"model.num_scales={SMOKE_SCALES}"], DDPM_ATTN_PER_FORWARD,
+        SMOKE_SCALES, SMOKE_BATCH, "[ddpm]", card_line)
 
 
 def phase_samplers(torch, attn, model, card_line: str) -> int:
@@ -1424,6 +1446,364 @@ def phase_samplers(torch, attn, model, card_line: str) -> int:
   return total
 
 
+def phase_train_run(torch, attn, config_path: str, workdir: str, flags: dict,
+                    per_forward: int, tag: str, resume_to: int = 0,
+                    card_line: str = "") -> tuple:
+  """``main --mode train`` in process with ``flags`` (snapshot sampling
+  off), then, with ``resume_to``, a resume to that step: logged losses,
+  numbered checkpoints, the resume, the network evaluations (train steps
+  and eval forwards; remat recomputes resblocks, not the network) and the
+  launches, ``per_forward`` forward launches per evaluation and backward
+  calls per train step. Returns the forward and backward launches."""
+  from score_sde_pytorch_tpu_torch import checkpoint, configs, main
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  flags = dict(flags, **{"training.snapshot_sampling": False})
+  config = configs.load_config(config_path,
+                               [f"{k}={v}" for k, v in flags.items()])
+  tcfg = config.training
+  initial = [p.detach() for p in mutils.create_model(
+      config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()
+             if p.requires_grad]
+  attn.flash_attention_launches = 0
+  attn.flash_attention_backward_launches = 0
+  runs = []
+  with network_evals(torch) as evals:
+    for n_iters in (tcfg.n_iters,) + ((resume_to,) if resume_to else ()):
+      start = time.perf_counter()
+      runs.append(main.main(
+          ["--config", config_path, "--workdir", workdir, "--mode", "train"]
+          + [f"--config.{k}={v}" for k, v in flags.items()]
+          + [f"--config.training.n_iters={n_iters}"]))
+      say(f"{tag} main --mode train to step {n_iters} from step "
+          f"{runs[-1]['initial_step']} at batch {tcfg.batch_size} (remat "
+          f"{config.model.get('remat', False)}): "
+          f"{time.perf_counter() - start:.1f} s wall (checkpoints and eval "
+          f"included); losses {runs[-1]['train_losses']}, eval "
+          f"{runs[-1]['eval_losses']} ({card_line})")
+  launches = (attn.flash_attention_launches,
+              attn.flash_attention_backward_launches)
+  steps = resume_to or tcfg.n_iters
+  if resume_to:
+    log = open(os.path.join(workdir, "stdout.txt")).read()
+    check(f"Starting training loop at step {tcfg.n_iters}" in log,
+          f"{tag} the resumed run did not start at step {tcfg.n_iters}")
+  seen = [v for run in runs for _, v in run["train_losses"]
+          + run["eval_losses"]]
+  check(len(seen) == 2 * len(runs) and all(math.isfinite(v) for v in seen),
+        f"{tag} logged losses {seen}")
+  for n in range(1, steps // tcfg.snapshot_freq + 1):
+    _ckpt_checks(torch, checkpoint.numbered_path(workdir, n),
+                 n * tcfg.snapshot_freq, initial, config.model.ema_rate)
+  eval_forwards = tcfg.n_jitted_steps * (steps // tcfg.eval_freq)
+  want = (per_forward * (steps + eval_forwards), per_forward * steps)
+  say(f"{tag} {evals[0]} network evaluations ({steps} train steps + "
+      f"{eval_forwards} eval forwards); kernel launches: forward "
+      f"{launches[0]}, backward calls {launches[1]} = {per_forward} x "
+      f"{steps} train steps")
+  check(evals[0] == steps + eval_forwards,
+        f"{tag} {evals[0]} network evaluations, want {steps} + "
+        f"{eval_forwards}")
+  check(launches == want, f"{tag} launches {launches}, want {want}")
+  return launches
+
+
+def phase_main_sample(torch, attn, config_path: str, workdir: str,
+                      overrides: list, per_forward: int, want_evals: int,
+                      batch: int, tag: str, card_line: str,
+                      rounds: int = 1) -> int:
+  """``main --mode sample`` in process on ``workdir``'s latest checkpoint,
+  ``rounds`` rounds of ``batch``: the samples, ``want_evals`` counted
+  network evaluations per round and ``per_forward`` launches per
+  evaluation. Returns the launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import configs, main
+  size = configs.load_config(config_path, overrides).data.image_size
+  attn.flash_attention_launches = 0
+  with network_evals(torch) as evals:
+    records = main.main(["--config", config_path, "--workdir", workdir,
+                         "--mode", "sample", "--num_samples",
+                         str(batch * rounds),
+                         f"--config.eval.batch_size={batch}"]
+                        + [f"--config.{o}" for o in overrides])
+  launches = attn.flash_attention_launches
+  for r in range(rounds):
+    samples = np.load(os.path.join(workdir, "generated",
+                                   f"samples_{r}.npz"))["samples"]
+    check(samples.dtype == np.uint8
+          and samples.shape == (batch, size, size, 3),
+          f"{tag} samples_{r}.npz {samples.dtype} {samples.shape}")
+  check(evals[0] == want_evals * rounds,
+        f"{tag} {evals[0]} network evaluations, want {want_evals} x "
+        f"{rounds}")
+  check(launches == per_forward * evals[0],
+        f"{tag} {launches} launches, want {per_forward} x {evals[0]}")
+  for r, rec in enumerate(records):
+    say(f"{tag} main --mode sample ({' '.join(overrides)}), round {r}: "
+        f"{rec['samples']} samples in {rec['seconds']:.3f} s, reported NFE "
+        f"{rec['nfe']}, {want_evals} network evaluations: "
+        f"{rec['seconds'] * 1e3 / want_evals:.3f} ms/evaluation at batch "
+        f"{batch} ({card_line})")
+  say(f"{tag} {launches} kernel launches = {per_forward} x {evals[0]} "
+      f"network evaluations")
+  return launches
+
+
+def train_step_peak(torch, attn, config, batch_size: int,
+                    steps: int = 2) -> dict:
+  """The train step of ``config`` at ``batch_size``: one warm-up step, then
+  ``steps`` timed ones; wall ms per step, peak max_memory_allocated over
+  all of them, and the attention launches per step."""
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  run = _train_step(torch, config, batch_size)
+  run(1)  # warm-up: cuDNN's first-call set-up, Adam's state
+  attn.flash_attention_launches = 0
+  attn.flash_attention_backward_launches = 0
+  start = time.perf_counter()
+  run(steps)
+  ms = (time.perf_counter() - start) * 1e3 / steps
+  return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": (attn.flash_attention_launches / steps,
+                       attn.flash_attention_backward_launches / steps)}
+
+
+def phase_remat_memory(torch, attn, config, card_line: str) -> None:
+  """[hires-memory]: the church train step at its batch of 64 with remat,
+  then without remat at the largest batch of NO_REMAT_BATCHES that fits
+  (a batch that runs out of device memory is reported and the next smaller
+  one tried)."""
+  import gc
+  from score_sde_pytorch_tpu_torch import configs
+  batch = config.training.batch_size
+  rec = train_step_peak(torch, attn, config, batch)
+  say(f"[hires-memory] remat on, batch {batch}: {rec['ms']:.1f} ms/step, "
+      f"peak max_memory_allocated {rec['peak_gib']:.2f} GiB; attention "
+      f"{rec['launches'][0]:g} forward launches and {rec['launches'][1]:g} "
+      f"backward calls per step ({card_line})")
+  check(rec["launches"] == (HIRES_ATTN_PER_FORWARD, HIRES_ATTN_PER_FORWARD),
+        f"[hires-memory] launches per step {rec['launches']}")
+  plain = configs.load_config(CHURCH_CONFIG, ["model.remat=False"])
+  for b in NO_REMAT_BATCHES:
+    try:
+      rec = train_step_peak(torch, attn, plain, b)
+    except torch.cuda.OutOfMemoryError:
+      rec = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rec is None:
+      say(f"[hires-memory] remat off, batch {b}: out of device memory")
+      continue
+    say(f"[hires-memory] remat off, batch {b} (the largest of "
+        f"{NO_REMAT_BATCHES} that fits): {rec['ms']:.1f} ms/step, peak "
+        f"max_memory_allocated {rec['peak_gib']:.2f} GiB ({card_line})")
+    return
+  check(False, f"[hires-memory] no batch of {NO_REMAT_BATCHES} fits "
+        "without remat")
+
+
+def phase_controllable(torch, attn, config, model, card_line: str) -> int:
+  """[controllable]: inpainting (the top half known) and colorization of a
+  batch at full width with the config's PC sampler at its cut num_scales:
+  the known half and the gray channel kept within 1e-3, finite images, and
+  the attention launches per counted evaluation. Returns the launches."""
+  from score_sde_pytorch_tpu_torch import controllable_generation as cg
+  from score_sde_pytorch_tpu_torch import datasets, sampling
+  from score_sde_pytorch_tpu_torch import sde as sde_lib
+  scfg = config.sampling
+  args = (sde_lib.build_sde(config), model,
+          sampling.get_predictor(scfg.predictor),
+          sampling.get_corrector(scfg.corrector),
+          datasets.get_data_inverse_scaler(config), scfg.snr)
+  kwargs = dict(n_steps=scfg.n_steps_each, continuous=True)
+  gen = torch.Generator(device="cuda").manual_seed(12)
+  size = config.data.image_size
+  data = torch.rand(HIRES_BATCH, size, size, 3, device="cuda", generator=gen)
+  mask = torch.zeros_like(data)
+  mask[:, :size // 2] = 1.0
+  gray = data[..., :1].expand(-1, -1, -1, 3)
+  total = 0
+  for name, run in (
+      ("inpaint", lambda: cg.get_pc_inpainter(*args, **kwargs)(gen, data,
+                                                               mask)),
+      ("colorize", lambda: cg.get_pc_colorizer(*args, **kwargs)(gen, gray))):
+    attn.flash_attention_launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with network_evals(torch) as evals:
+      out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = attn.flash_attention_launches
+    total += launches
+    check(out.shape == data.shape and bool(torch.isfinite(out).all()),
+          f"[controllable] {name}: {tuple(out.shape)}, finite "
+          f"{bool(torch.isfinite(out).all())}")
+    if name == "inpaint":
+      err = (out[:, :size // 2] - data[:, :size // 2]).abs().max().item()
+    else:
+      err = (cg.decouple(out.permute(0, 3, 1, 2))[:, 0]
+             - cg.decouple(gray.permute(0, 3, 1, 2))[:, 0]).abs().max().item()
+    want = (scfg.n_steps_each + 1) * config.model.num_scales
+    say(f"[controllable] {name} at batch {HIRES_BATCH}, {size}x{size}, "
+        f"{scfg.predictor} + {scfg.corrector}, num_scales "
+        f"{config.model.num_scales}: {seconds:.3f} s, {evals[0]} network "
+        f"evaluations ({seconds * 1e3 / evals[0]:.3f} ms each), "
+        f"{launches} kernel launches; max |kept - given| {err:.3g} "
+        f"({card_line})")
+    check(err <= 1e-3, f"[controllable] {name}: kept region off by {err:.3g}")
+    check(evals[0] == want, f"[controllable] {name}: {evals[0]} evaluations, "
+          f"want {want}")
+    check(launches == HIRES_ATTN_PER_FORWARD * evals[0],
+          f"[controllable] {name}: {launches} launches, want "
+          f"{HIRES_ATTN_PER_FORWARD} x {evals[0]}")
+  return total
+
+
+def phase_hires(torch, attn, card_line: str) -> tuple:
+  """ve/church_ncsnpp_continuous.py at full width (output and input
+  pyramids, remat): [hires-sample] from the seeded model's checkpoint;
+  then at unit gain [controllable], and with TF32 off [hires-forward] and
+  [hires-grad] through the kernels against the plain attention, and the
+  multiattn file's forward
+  (attention at 32² too); [hires-train] ``main --mode train`` at batch 64
+  and a resume; [hires-memory]. Returns the forward and backward
+  launches of the counted runs."""
+  from score_sde_pytorch_tpu_torch import checkpoint, configs
+  from score_sde_pytorch_tpu_torch.models import layers
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(CHURCH_CONFIG,
+                               [f"model.num_scales={HIRES_SCALES}"])
+  model = mutils.create_model(config, "cuda",
+                              torch.Generator().manual_seed(config.seed))
+  say(f"[hires] {CHURCH_CONFIG[len(ROOT) + 1:]}: "
+      f"{sum(p.numel() for p in model.parameters())} parameters, "
+      f"progressive {config.model.progressive}, progressive_input "
+      f"{config.model.progressive_input}, remat {config.model.remat}; "
+      f"num_scales cut from 2000 to {HIRES_SCALES}")
+  with tempfile.TemporaryDirectory() as workdir:
+    checkpoint.save_checkpoint(checkpoint.numbered_path(workdir, 1), model,
+                               config, step=1)
+    forward = phase_main_sample(
+        torch, attn, CHURCH_CONFIG, workdir,
+        [f"model.num_scales={HIRES_SCALES}"], HIRES_ATTN_PER_FORWARD,
+        (config.sampling.n_steps_each + 1) * HIRES_SCALES, HIRES_BATCH,
+        "[hires-sample]", card_line)
+  # At its init the network's output convs are zero (init_scale 0), so the
+  # Langevin step, scaled by 1/|score|², would throw the unknown channels
+  # far out; at unit gain the score has the scale of a trained one.
+  unit_gain_(torch, model, layers, seed=config.seed)
+  forward += phase_controllable(torch, attn, config, model, card_line)
+  defaults = _tf32_off(torch)
+  try:
+    phase_forward(torch, attn, config, model, tag="[hires-forward]",
+                  per_forward=HIRES_ATTN_PER_FORWARD, batch=HIRES_BATCH,
+                  cpu_batch=1)
+    phase_grad(torch, attn, config, model, tag="[hires-grad]",
+               per_forward=HIRES_ATTN_PER_FORWARD,
+               batch_size=HIRES_GRAD_BATCH)
+    del model
+    multi = configs.load_config(MULTIATTN_CONFIG)
+    model = mutils.create_model(multi, "cuda",
+                                torch.Generator().manual_seed(multi.seed))
+    unit_gain_(torch, model, layers, seed=multi.seed)
+    phase_forward(torch, attn, multi, model, tag="[hires-multiattn]",
+                  per_forward=MULTIATTN_PER_FORWARD, batch=HIRES_BATCH,
+                  cpu_batch=1)
+    del model
+  finally:
+    _tf32_restore(torch, defaults)
+  flags = {"training.n_iters": HIRES_TRAIN_STEPS, "training.log_freq": 5,
+           "training.eval_freq": 5, "training.snapshot_freq": 5,
+           "training.snapshot_freq_for_preemption": 5}
+  with tempfile.TemporaryDirectory() as workdir:
+    train = phase_train_run(torch, attn, CHURCH_CONFIG, workdir, flags,
+                            HIRES_ATTN_PER_FORWARD, "[hires-train]",
+                            resume_to=2 * HIRES_TRAIN_STEPS,
+                            card_line=card_line)
+  phase_remat_memory(torch, attn, configs.load_config(CHURCH_CONFIG),
+                     card_line)
+  return forward + train[0], train[1]
+
+
+def phase_ddpm256(torch, attn, card_line: str) -> tuple:
+  """vp/ddpm/church.py at full width (attention at C = 512): [ddpm-256]
+  the unit-gain forward and a DDPM-loss gradient through the kernels
+  against the plain attention (TF32 off); ``main --mode train`` at batch 8
+  (no remat in this model) and ``--mode sample`` (ancestral sampling at a
+  cut num_scales) on its checkpoint. Returns the forward and backward
+  launches of the counted runs."""
+  from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch.models import layers
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(DDPM256_CONFIG)
+  model = mutils.create_model(config, "cuda",
+                              torch.Generator().manual_seed(config.seed))
+  say(f"[ddpm-256] {DDPM256_CONFIG[len(ROOT) + 1:]}: "
+      f"{sum(p.numel() for p in model.parameters())} parameters")
+  unit_gain_(torch, model, layers, seed=config.seed)
+  defaults = _tf32_off(torch)
+  try:
+    phase_forward(torch, attn, config, model, tag="[ddpm-256]",
+                  per_forward=DDPM256_ATTN_PER_FORWARD, batch=HIRES_BATCH,
+                  cpu_batch=1)
+    phase_grad(torch, attn, config, model, tag="[ddpm-256-grad]",
+               per_forward=DDPM256_ATTN_PER_FORWARD,
+               batch_size=HIRES_GRAD_BATCH)
+  finally:
+    _tf32_restore(torch, defaults)
+  del model
+  flags = {"training.batch_size": DDPM256_TRAIN_BATCH,
+           "training.n_iters": HIRES_TRAIN_STEPS, "training.log_freq": 5,
+           "training.eval_freq": 5, "training.snapshot_freq": 5,
+           "training.snapshot_freq_for_preemption": 5}
+  with tempfile.TemporaryDirectory() as workdir:
+    train = phase_train_run(torch, attn, DDPM256_CONFIG, workdir, flags,
+                            DDPM256_ATTN_PER_FORWARD, "[ddpm-256-train]",
+                            card_line=card_line)
+    sample = phase_main_sample(
+        torch, attn, DDPM256_CONFIG, workdir,
+        [f"model.num_scales={DDPM256_SCALES}"], DDPM256_ATTN_PER_FORWARD,
+        DDPM256_SCALES, HIRES_BATCH, "[ddpm-256-sample]", card_line)
+  return train[0] + sample, train[1]
+
+
+def phase_hires_1024(torch, attn, card_line: str) -> tuple:
+  """ve/celebahq_ncsnpp_continuous.py at full width (1024², attention at
+  C = 512): [hires-1024] the unit-gain forward through the kernels against
+  the plain attention (TF32 off), then the train step with remat at its
+  batch of 8, driven directly (the synthetic split at 1024² is 640 images
+  of 3 MB), with its peak memory. Returns the forward and backward
+  launches of the timed train steps."""
+  from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch.models import layers
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(HQ1024_CONFIG)
+  model = mutils.create_model(config, "cuda",
+                              torch.Generator().manual_seed(config.seed))
+  say(f"[hires-1024] {HQ1024_CONFIG[len(ROOT) + 1:]}: "
+      f"{sum(p.numel() for p in model.parameters())} parameters, remat "
+      f"{config.model.remat}")
+  unit_gain_(torch, model, layers, seed=config.seed)
+  defaults = _tf32_off(torch)
+  try:
+    phase_forward(torch, attn, config, model, tag="[hires-1024]",
+                  per_forward=HQ1024_ATTN_PER_FORWARD, batch=2, cpu_batch=1)
+  finally:
+    _tf32_restore(torch, defaults)
+  del model
+  steps = 2
+  rec = train_step_peak(torch, attn, config, HQ1024_TRAIN_BATCH, steps=steps)
+  say(f"[hires-1024] train step with remat at batch {HQ1024_TRAIN_BATCH}: "
+      f"{rec['ms']:.1f} ms/step, peak max_memory_allocated "
+      f"{rec['peak_gib']:.2f} GiB; {rec['launches'][0]:g} forward launches "
+      f"and {rec['launches'][1]:g} backward calls per step ({card_line})")
+  check(rec["launches"] == (HQ1024_ATTN_PER_FORWARD,
+                            HQ1024_ATTN_PER_FORWARD),
+        f"[hires-1024] launches per step {rec['launches']}")
+  return (HQ1024_ATTN_PER_FORWARD * steps, HQ1024_ATTN_PER_FORWARD * steps)
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1441,12 +1821,14 @@ def main() -> int:
       f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
   phase_build(attn, act)
 
-  defaults = (torch.backends.cuda.matmul.allow_tf32,
-              torch.backends.cudnn.allow_tf32)
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  defaults = _tf32_off(torch)
   record = phase_kernel(torch, attn)
   record_bwd = phase_kernel_bwd(torch, attn)
+  record_512 = phase_kernel(torch, attn, ATTN_512_SHAPES, "[kernel-512]")
+  record_bwd_512 = phase_kernel_bwd(torch, attn, ATTN_512_SHAPES,
+                                    "[kernel-bwd-512]")
+  for rec, wide in ((record, record_512), (record_bwd, record_bwd_512)):
+    rec["max_abs_err"] = max(rec["max_abs_err"], wide["max_abs_err"])
   record_act, record_act_bwd = phase_fused_act(torch, act)
 
   config = configs.load_config(
@@ -1469,8 +1851,7 @@ def main() -> int:
 
   # Sampling, training and evaluation run as a user runs them: PyTorch's
   # default TF32 settings.
-  (torch.backends.cuda.matmul.allow_tf32,
-   torch.backends.cudnn.allow_tf32) = defaults
+  _tf32_restore(torch, defaults)
   launches = phase_sample(torch, attn, config, model, card_line)
   attn.flash_attention_launches = 0
   phase_sample_profile(torch, model, card_line)
@@ -1488,7 +1869,10 @@ def main() -> int:
   del model
   with tempfile.TemporaryDirectory() as workdir:
     vp_train = phase_vp_train(torch, attn, card_line, workdir)
-    vp_sample = phase_vp_sample(torch, attn, workdir, card_line)
+    vp_sample = phase_main_sample(
+        torch, attn, VP_CONFIG, workdir, [f"model.num_scales={SMOKE_SCALES}"],
+        ATTN_PER_FORWARD, SMOKE_SCALES, SMOKE_BATCH, "[vp-sample]",
+        card_line, rounds=SMOKE_ROUNDS)
     vp_eval = phase_vp_eval(torch, attn, workdir, card_line)
   ddpm_sample = phase_ddpm(torch, attn, card_line)
   samplers = phase_samplers(torch, attn, vp_model, card_line)
@@ -1500,6 +1884,9 @@ def main() -> int:
         f"[vp-profile] {attn.flash_attention_launches} kernel launches in 3 "
         f"sampler runs of {evals} evaluations")
   del vp_model
+  ddpm256 = phase_ddpm256(torch, attn, card_line)
+  hires = phase_hires(torch, attn, card_line)
+  hires_1024 = phase_hires_1024(torch, attn, card_line)
   # The card's machine has jax installed, so an import of it would not fail;
   # nor would one of the JAX package, which sits beside the port.
   leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -1510,9 +1897,11 @@ def main() -> int:
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
        launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
-       + vp_eval[0] + ddpm_sample + samplers, record),
+       + vp_eval[0] + ddpm_sample + samplers + ddpm256[0] + hires[0]
+       + hires_1024[0], record),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
-       train_bwd + eval_bwd + vp_train[1] + vp_eval[1], record_bwd),
+       train_bwd + eval_bwd + vp_train[1] + vp_eval[1] + ddpm256[1]
+       + hires[1] + hires_1024[1], record_bwd),
       # On no model's path: the sample, train and eval runs launch it 0
       # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],

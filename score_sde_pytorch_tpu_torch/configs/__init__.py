@@ -16,8 +16,9 @@ port's copy at ``<rel>``, so the JAX package's command lines keep working;
 no file of the JAX package is ever run.
 
 Keys with no PyTorch meaning: ``training.prng_impl`` and
-``model.spatial_sharding`` are ignored. ``model.remat=True`` and
-``model.dtype`` other than float32 raise.
+``model.spatial_sharding`` are ignored. ``model.dtype`` other than float32
+raises; ``model.remat`` and ``model.remat_min_res`` are honoured by NCSN++
+(``models/ncsnpp.py``).
 """
 from __future__ import annotations
 
@@ -124,10 +125,6 @@ def apply_overrides(config, overrides: Iterable[str]) -> None:
 
 def check_supported(config) -> None:
   """Raise on settings the port cannot honour yet."""
-  if config.model.get("remat", False):
-    raise NotImplementedError("model.remat (activation recomputation in "
-                              "training) is not ported yet; see ROADMAP.md "
-                              "queue 1 item 1")
   dtype = config.model.get("dtype", "float32")
   if dtype != "float32":
     raise NotImplementedError(f"model.dtype={dtype!r} is not ported yet; the "

@@ -1,9 +1,9 @@
 """NCSN++ layers (NCHW).
 
-Counterpart of score_sde_pytorch_tpu/models/layerspp.py for the modules on
-the flagship path. Submodule names and registration order follow the torch
-reference (yang-song/score_sde_pytorch models/layerspp.py), so parameters
-load from its ``.pth`` files and from
+Counterpart of score_sde_pytorch_tpu/models/layerspp.py for the modules of
+the shipped NCSN++ and DDPM++ configs. Submodule names and registration
+order follow the torch reference (yang-song/score_sde_pytorch
+models/layerspp.py), so parameters load from its ``.pth`` files and from
 ``score_sde_pytorch_tpu.interop.flax_params_to_torch_state_dict`` with
 ``strict=True``, and ``model.parameters()`` order matches the EMA
 ``shadow_params`` of those checkpoints.
@@ -14,6 +14,7 @@ import math
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from score_sde_pytorch_tpu_torch.models import layers
@@ -28,7 +29,8 @@ def _groups(channels: int) -> int:
 
 def _not_ported(what: str) -> NotImplementedError:
   return NotImplementedError(
-      f"{what} is not ported yet; see ROADMAP.md queue 1 items 3 and 11")
+      f"{what} is not ported yet; see ROADMAP.md queue 1 item 2 (no shipped "
+      "config uses it)")
 
 
 class GaussianFourierProjection(nn.Module):
@@ -61,12 +63,33 @@ class AttnBlockpp(layers.AttnBlock):
                      init_scale=init_scale, skip_rescale=skip_rescale)
 
 
+class Combine(nn.Module):
+  """Combine the input pyramid with the trunk (JAX layerspp.py:43-56): a
+  1x1 conv ``Conv_0`` of the pyramid, then concatenated before the trunk
+  (``'cat'``) or added to it (``'sum'``)."""
+
+  def __init__(self, dim1: int, dim2: int, method: str = "cat", *,
+               generator: torch.Generator):
+    super().__init__()
+    if method not in ("cat", "sum"):
+      raise ValueError(f"Method {method} not recognized.")
+    self.Conv_0 = layers.ddpm_conv1x1(dim1, dim2, generator=generator)
+    self.method = method
+
+  def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    h = self.Conv_0(x)
+    if self.method == "cat":
+      return torch.cat([h, y], dim=1)
+    return h + y
+
+
 class Conv2dFused(nn.Module):
   """StyleGAN2 conv with fused FIR down-sampling
   (reference up_or_down_sampling.py:23-56), with bias. Weight layout OIHW.
 
-  Only the down form is on the flagship path; the up and plain forms (and
-  ``upsample_conv_2d``) are not ported yet."""
+  Only the down form is on a shipped config's path; the up and plain forms
+  (and ``upsample_conv_2d``, for ``progressive='residual'``) are not ported
+  yet."""
 
   def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
                generator: torch.Generator, up: bool = False,
@@ -86,23 +109,60 @@ class Conv2dFused(nn.Module):
     return x + self.bias.reshape(1, -1, 1, 1)
 
 
-class Downsample(nn.Module):
-  """2x FIR downsample with a fused conv (JAX layerspp.py:154-180), the
-  residual input pyramid's; the other forms are not ported yet."""
+class Upsample(nn.Module):
+  """2x upsample (JAX layerspp.py:127-151): nearest, then an optional 3x3
+  conv ``Conv_0``; or FIR without a conv (the output pyramid's). FIR with a
+  fused conv (``progressive='residual'``) is not ported yet."""
 
   def __init__(self, in_ch: int, out_ch: Optional[int] = None, *,
                generator: torch.Generator, with_conv: bool = False,
                fir: bool = False,
                fir_kernel: Sequence[int] = (1, 3, 3, 1)):
     super().__init__()
-    if not (fir and with_conv):
-      raise _not_ported("Downsample without fir=True and with_conv=True")
-    self.Conv2d_0 = Conv2dFused(in_ch, out_ch or in_ch, 3,
-                                generator=generator, down=True,
-                                resample_kernel=fir_kernel)
+    if fir and with_conv:
+      raise _not_ported("Upsample with fir=True and with_conv=True")
+    if with_conv:
+      self.Conv_0 = layers.ddpm_conv3x3(in_ch, out_ch or in_ch,
+                                        generator=generator)
+    self.with_conv, self.fir = with_conv, fir
+    self.fir_kernel = tuple(fir_kernel)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return self.Conv2d_0(x)
+    if self.fir:
+      return upfirdn2d.upsample_2d(x, self.fir_kernel, factor=2)
+    h = F.interpolate(x, scale_factor=2, mode="nearest")
+    return self.Conv_0(h) if self.with_conv else h
+
+
+class Downsample(nn.Module):
+  """2x downsample (JAX layerspp.py:154-180): FIR with a fused conv
+  ``Conv2d_0`` (the residual input pyramid's) or without one (the
+  ``input_skip`` pyramid's); else a stride-2 3x3 conv ``Conv_0`` after
+  padding the bottom and right by one, or a 2x2 average pool."""
+
+  def __init__(self, in_ch: int, out_ch: Optional[int] = None, *,
+               generator: torch.Generator, with_conv: bool = False,
+               fir: bool = False,
+               fir_kernel: Sequence[int] = (1, 3, 3, 1)):
+    super().__init__()
+    out_ch = out_ch or in_ch
+    if fir and with_conv:
+      self.Conv2d_0 = Conv2dFused(in_ch, out_ch, 3, generator=generator,
+                                  down=True, resample_kernel=fir_kernel)
+    elif with_conv:
+      self.Conv_0 = layers.ddpm_conv3x3(in_ch, out_ch, generator=generator,
+                                        stride=2, padding=0)
+    self.with_conv, self.fir = with_conv, fir
+    self.fir_kernel = tuple(fir_kernel)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if self.fir:
+      if self.with_conv:
+        return self.Conv2d_0(x)
+      return upfirdn2d.downsample_2d(x, self.fir_kernel, factor=2)
+    if self.with_conv:
+      return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
+    return F.avg_pool2d(x, 2, stride=2)
 
 
 class ResnetBlockBigGANpp(nn.Module):

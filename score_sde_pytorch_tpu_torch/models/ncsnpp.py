@@ -8,10 +8,22 @@ and the reference's ``.pth`` files load with ``strict=True``. Comments name
 each module's flax counterpart.
 
 Ported branches: Fourier and positional noise embeddings, BigGAN resblocks
-with FIR or naive resampling (``fir``), ``progressive='none'``,
-``progressive_input`` 'none' or 'residual', ``scale_by_sigma`` and the
-``2x - 1`` input scaling of uncentered data: the flagship VE NCSN++ and the
-DDPM++ of the VP/subVP configs. The rest raises NotImplementedError.
+with FIR or naive resampling (``fir``), ``progressive`` 'none' or
+'output_skip' (the output pyramid), ``progressive_input`` 'none',
+'input_skip' (with ``progressive_combine`` 'sum' or 'cat') or 'residual',
+``scale_by_sigma``, the ``2x - 1`` input scaling of uncentered data, and
+``model.remat``: every shipped NCSN++ and DDPM++ config. The rest
+(``progressive='residual'``, ``resblock_type='ddpm'``, ``conditional=False``)
+raises NotImplementedError.
+
+``model.remat`` recomputes the resblocks whose input is at least
+``model.remat_min_res`` pixels high (0: every resblock) in the backward
+instead of storing their activations, as the JAX package's ``nn.remat`` of
+``block_call`` does (JAX ncsnpp.py:80-99): through
+``torch.utils.checkpoint`` with the RNG state kept, so dropout draws the
+same masks again, and only while a gradient is being taken. The attention
+blocks are called directly, so their kernel runs once per forward with or
+without remat.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from score_sde_pytorch_tpu_torch.models import layers, layerspp, utils
 
@@ -28,8 +41,8 @@ _SQRT2 = math.sqrt(2.0)
 _PORTED = {
     "embedding_type": ("fourier", "positional"),
     "resblock_type": ("biggan",),
-    "progressive": ("none",),
-    "progressive_input": ("none", "residual"),
+    "progressive": ("none", "output_skip"),
+    "progressive_input": ("none", "input_skip", "residual"),
 }
 
 
@@ -40,10 +53,10 @@ def _check_ported(config) -> None:
     if got not in ported:
       raise NotImplementedError(
           f"NCSNpp model.{key}={got!r} is not ported yet (only "
-          f"{', '.join(map(repr, ported))}); see ROADMAP.md queue 1 item 3")
+          f"{', '.join(map(repr, ported))}); see ROADMAP.md queue 1 item 2")
   if not m.conditional:
     raise NotImplementedError("NCSNpp with conditional=False is not ported "
-                              "yet; see ROADMAP.md queue 1 item 3")
+                              "yet; see ROADMAP.md queue 1 item 2")
   if m.embedding_type.lower() == "fourier" and not config.training.continuous:
     raise ValueError("Fourier features are only used for continuous training.")
 
@@ -73,7 +86,10 @@ class NCSNpp(nn.Module):
     self.scale_by_sigma = m.scale_by_sigma
     self.embedding_type = m.embedding_type.lower()
     self.nf = nf
-    self.residual_input = m.progressive_input.lower() == "residual"
+    self.progressive = m.progressive.lower()
+    self.progressive_input = m.progressive_input.lower()
+    self.remat = bool(m.get("remat", False))
+    self.remat_min_res = int(m.get("remat_min_res", 0))
     fir, fir_kernel = m.fir, tuple(m.fir_kernel)
     init_scale = m.init_scale
     channels = config.data.num_channels
@@ -112,7 +128,13 @@ class NCSNpp(nn.Module):
         hs_c.append(in_ch)
       if i_level != num_resolutions - 1:
         modules.append(resblock(in_ch, down=True))   # down_{i}_downsample
-        if self.residual_input:
+        if self.progressive_input == "input_skip":
+          modules.append(layerspp.Combine(           # combine_{i}
+              input_pyramid_ch, in_ch, m.progressive_combine.lower(),
+              generator=g))
+          if m.progressive_combine.lower() == "cat":
+            in_ch *= 2
+        elif self.progressive_input == "residual":
           modules.append(layerspp.Downsample(        # pyramid_downsample_{i}
               input_pyramid_ch, in_ch, generator=g, with_conv=True, fir=fir,
               fir_kernel=fir_kernel))
@@ -130,15 +152,38 @@ class NCSNpp(nn.Module):
         in_ch = out_ch
       if all_resolutions[i_level] in attn_resolutions:
         modules.append(attn(in_ch))                  # up_{i}_attn
+      if self.progressive == "output_skip":
+        modules.append(layers.GroupNorm(min(in_ch // 4, 32), in_ch,
+                                        eps=1e-6))   # pyramid_norm_{i}
+        modules.append(layers.ddpm_conv3x3(          # pyramid_conv_{i}
+            in_ch, channels, generator=g, init_scale=init_scale))
       if i_level != 0:
         modules.append(resblock(in_ch, up=True))     # up_{i}_upsample
     assert not hs_c
 
-    modules.append(layers.GroupNorm(min(in_ch // 4, 32), in_ch,
-                                    eps=1e-6))       # norm_out
-    modules.append(layers.ddpm_conv3x3(in_ch, channels, generator=g,
-                                       init_scale=init_scale))  # conv_out
+    if self.progressive != "output_skip":
+      modules.append(layers.GroupNorm(min(in_ch // 4, 32), in_ch,
+                                      eps=1e-6))     # norm_out
+      modules.append(layers.ddpm_conv3x3(in_ch, channels, generator=g,
+                                         init_scale=init_scale))  # conv_out
     self.all_modules = nn.ModuleList(modules)
+    # The pyramids' resamplers hold no parameters (JAX pyramid_upsample_{i},
+    # pyramid_downsample_{i}), so they stay out of all_modules, as in the
+    # reference.
+    self.pyramid_upsample = layerspp.Upsample(
+        channels, generator=g, fir=fir, fir_kernel=fir_kernel)
+    self.pyramid_downsample = layerspp.Downsample(
+        channels, generator=g, fir=fir, fir_kernel=fir_kernel)
+
+  def _resblock(self, block: nn.Module, x: torch.Tensor,
+                temb: torch.Tensor) -> torch.Tensor:
+    """``block(x, temb)``, recomputed in the backward under ``model.remat``
+    (JAX ``block_call``, ncsnpp.py:96-99)."""
+    if (self.remat and torch.is_grad_enabled()
+        and x.shape[2] >= self.remat_min_res):
+      return checkpoint.checkpoint(block, x, temb, use_reentrant=False,
+                                   preserve_rng_state=True)
+    return block(x, temb)
 
   def forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
     """Score-network output for NCHW ``x`` at ``time_cond`` ([B]): the
@@ -157,17 +202,21 @@ class NCSNpp(nn.Module):
     if not self.centered:
       x = 2 * x - 1.0                                # [0, 1] -> [-1, 1]
 
+    block = self._resblock
     input_pyramid = x
     hs = [next(modules)(x)]                          # conv_in
     for i_level in range(self.num_resolutions):
       for _ in range(self.num_res_blocks):
-        h = next(modules)(hs[-1], temb)              # down_{i}_block_{j}
+        h = block(next(modules), hs[-1], temb)       # down_{i}_block_{j}
         if h.shape[-1] in self.attn_resolutions:
           h = next(modules)(h)                       # down_{i}_attn_{j}
         hs.append(h)
       if i_level != self.num_resolutions - 1:
-        h = next(modules)(hs[-1], temb)              # down_{i}_downsample
-        if self.residual_input:
+        h = block(next(modules), hs[-1], temb)       # down_{i}_downsample
+        if self.progressive_input == "input_skip":
+          input_pyramid = self.pyramid_downsample(input_pyramid)
+          h = next(modules)(input_pyramid, h)        # combine_{i}
+        elif self.progressive_input == "residual":
           input_pyramid = next(modules)(input_pyramid)  # pyramid_downsample_{i}
           if self.skip_rescale:
             input_pyramid = (input_pyramid + h) / _SQRT2
@@ -177,21 +226,33 @@ class NCSNpp(nn.Module):
         hs.append(h)
 
     h = hs[-1]
-    h = next(modules)(h, temb)                       # mid_block_0
+    h = block(next(modules), h, temb)                # mid_block_0
     h = next(modules)(h)                             # mid_attn
-    h = next(modules)(h, temb)                       # mid_block_1
+    h = block(next(modules), h, temb)                # mid_block_1
 
+    pyramid = None
     for i_level in reversed(range(self.num_resolutions)):
       for _ in range(self.num_res_blocks + 1):
-        h = next(modules)(torch.cat([h, hs.pop()], dim=1), temb)  # up_{i}_block_{j}
+        h = block(next(modules), torch.cat([h, hs.pop()], dim=1),
+                  temb)                              # up_{i}_block_{j}
       if h.shape[-1] in self.attn_resolutions:
         h = next(modules)(h)                         # up_{i}_attn
+      if self.progressive == "output_skip":
+        pyramid_h = act(next(modules)(h))            # pyramid_norm_{i}
+        pyramid_h = next(modules)(pyramid_h)         # pyramid_conv_{i}
+        if pyramid is None:
+          pyramid = pyramid_h
+        else:
+          pyramid = self.pyramid_upsample(pyramid) + pyramid_h
       if i_level != 0:
-        h = next(modules)(h, temb)                   # up_{i}_upsample
+        h = block(next(modules), h, temb)            # up_{i}_upsample
     assert not hs
 
-    h = act(next(modules)(h))                        # norm_out
-    h = next(modules)(h)                             # conv_out
+    if self.progressive == "output_skip":
+      h = pyramid
+    else:
+      h = act(next(modules)(h))                      # norm_out
+      h = next(modules)(h)                           # conv_out
     assert next(modules, None) is None
 
     h = h.float()

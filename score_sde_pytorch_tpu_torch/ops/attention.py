@@ -37,7 +37,7 @@ flash_attention_launches = 0
 flash_attention_backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_C = 256
+_MAX_C = 512  # the widest attention of any shipped config (16 x 32, 128 x 4)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor,
@@ -73,7 +73,7 @@ def dense_attention_backward(q: torch.Tensor, k: torch.Tensor,
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
   """Raise unless q, k, v are what the kernel takes: contiguous [B, N, C]
   tensors of one shape, dtype (float32 or bfloat16) and device, with C a
-  multiple of 8 up to 256. The CPU path is held to the same contract."""
+  multiple of 8 up to 512. The CPU path is held to the same contract."""
   if q.dim() != 3 or not q.shape == k.shape == v.shape:
     raise ValueError(f"attention wants q, k, v of one [B, N, C] shape, got "
                      f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

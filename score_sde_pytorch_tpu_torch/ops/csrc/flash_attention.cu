@@ -43,8 +43,8 @@
 //   each kind of term (lo hi, hi lo, hi hi) over two output tiles, and the
 //   logits over two 8-channel steps, before the next kind (mma_tiles(),
 //   logits()); the sums keep their order.
-// - C = 256, the width of every NCSN++ attention, has its own
-//   instantiation with all offsets known to the compiler.
+// - C = 256, the width of every 32^2 NCSN++ attention, and C = 512 have
+//   their own instantiations with all offsets known to the compiler.
 // What holds it back now (H100 80GB HBM3, 700 W; PERF.md): mma.sync TF32
 // runs at ~320 TFLOP/s on this card, so the three products cap the fp32
 // rate near 107 TFLOP/s; the forward reaches a third of that. Of its time
@@ -69,6 +69,24 @@
 // N load as zeros, their logits as -inf, their outputs are not stored. When
 // the backward will run, each row's log-sum-exp m + log(l) is written too.
 //
+// C from 264 to 512 (the 256^2 DDPM's and the 1024^2 NCSN++'s attention at
+// C = 512). The layout above would need ~396 KB of shared memory and C / 2
+// accumulator floats per thread. Of the three ways out (split the output
+// channels over two blocks that both recompute the logits; 32-row query
+// tiles with single-buffered K/V; a channel-chunked logit loop), these
+// kernels take the second, because it keeps every logit's order of
+// summation, and with it the backward's bitwise agreement with the forward,
+// and needs no second pass: the warps that share a group of 16 query rows
+// go from two to four ("ways"), each holding a quarter of the output
+// channels (C / 8 floats per thread, as many as at C = 256) and computing
+// the logits of a quarter of the KV tile. Blocks hold 32 query rows and
+// stage one K/V tile at a time: (32 + 2 x 32) x (C + 4) floats, 204 KB at
+// C = 512. The backward does the same: dK/dV blocks of 16 KV rows (eight
+// warps, each an eighth of the channels) with a single-buffered 32-row
+// query tile, 208 KB; dQ blocks of 32 query rows, 142 KB. Single staging
+// loses the copy/compute overlap of the C <= 256 kernels, whose code and
+// instantiations are unchanged.
+//
 // Built by score_sde_pytorch_tpu_torch/ops/build.py with nvcc into a shared
 // library; the C entry points at the bottom are bound through ctypes.
 
@@ -81,9 +99,20 @@
 
 namespace {
 
-constexpr int kMaxC = 256;
+constexpr int kMaxC = 512;
 constexpr int kPad = 4;              // floats of padding per staged row
-constexpr int kMaxNTiles = kMaxC / 8;
+
+// The widest C of the kernels with kWays warps per 16 query rows (2 up to
+// C = 256, 4 up to 512), and the stages of their staged tiles.
+template <int kWays>
+__host__ __device__ constexpr int ways_max_c() {
+  return 128 * kWays;
+}
+
+template <int kWays>
+__host__ __device__ constexpr int ways_stages() {
+  return kWays == 2 ? 2 : 1;
+}
 
 // ---------------------------------------------------------------------------
 // Tensor-core products.
@@ -480,78 +509,98 @@ __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
 
 constexpr int kFwdWarps = 8;
 constexpr int kFwdThreads = 32 * kFwdWarps;
-constexpr int kFwdQ = 64;                // query rows per block
 constexpr int kFwdK = 32;                // KV rows per tile
 constexpr int kFwdPLd = kFwdK + 8;       // P tiles: 8 mod 32, for float2 A loads
-constexpr int kHalfTiles = kMaxNTiles / 2;
 
-// Each query row group of 16 is shared by two warps (half = 0, 1): a warp
-// computes the logits of its 16 rows against half of the KV tile's columns
-// and accumulates half of the output channels (8-column tiles 2 i + half),
-// so its output accumulator is C / 4 floats per thread and two warps of
-// independent mma chains share every SM scheduler.
-template <typename T, int kC>
+// Query rows per forward block: 16 for each group of kWays warps.
+template <int kWays>
+__host__ __device__ constexpr int fwd_rows() {
+  return 16 * (kFwdWarps / kWays);
+}
+
+// Each query row group of 16 is shared by kWays warps (way = 0 .. kWays-1):
+// a warp computes the logits of its 16 rows against 1 / kWays of the KV
+// tile's columns and accumulates 1 / kWays of the output channels (8-column
+// tiles kWays i + way), so its output accumulator is 16 x 4 floats per
+// thread at the widest C and kWays warps of independent mma chains share
+// the row group. kWays = 2: 64 query rows, K/V double-buffered (C <= 256);
+// kWays = 4: 32 query rows, one K/V stage (C <= 512).
+template <typename T, int kC, int kWays>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, int n, int c_arg, int q_tiles,
                     float scale) {
+  constexpr int kQ = fwd_rows<kWays>();
+  constexpr int kStages = ways_stages<kWays>();
+  constexpr int kAccTiles = ways_max_c<kWays>() / (8 * kWays);
+  constexpr int kSTiles = kFwdK / (8 * kWays);  // logit tiles of a warp
   const int c = kC > 0 ? kC : c_arg;
   extern __shared__ __align__(16) float smem[];
   const int ld = staged_width<T>(c) + kPad;
   float* q_s = smem;
-  float* kv_s = q_s + kFwdQ * ld;              // [2 stages][K tile, V tile]
-  float* p_s = kv_s + 4 * kFwdK * ld;          // kFwdQ x kFwdPLd
-  float* red_s = p_s + kFwdQ * kFwdPLd;           // [2 halves][kFwdQ]
+  float* kv_s = q_s + kQ * ld;                  // [kStages][K tile, V tile]
+  float* p_s = kv_s + kStages * 2 * kFwdK * ld;  // kQ x kFwdPLd
+  float* red_s = p_s + kQ * kFwdPLd;            // [kWays][kQ]
 
   const int batch = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x - batch * q_tiles) * kFwdQ;
+  const int q0 = (blockIdx.x - batch * q_tiles) * kQ;
   const size_t base = static_cast<size_t>(batch) * n * c;
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int m0 = 16 * (warp & 3);
-  const int half = warp >> 2;
+  const int m0 = 16 * (warp % (kFwdWarps / kWays));
+  const int way = warp / (kFwdWarps / kWays);
   const int tiles = (n + kFwdK - 1) / kFwdK;
 
   auto stage_kv = [&](int tile) {
     const int k0 = tile * kFwdK;
-    float* dst = kv_s + (tile & 1) * 2 * kFwdK * ld;
+    float* dst = kv_s + (tile & (kStages - 1)) * 2 * kFwdK * ld;
     stage<kFwdThreads>(k + base + static_cast<size_t>(k0) * c, c, dst, ld,
                        kFwdK, n - k0, c);
     stage<kFwdThreads>(v + base + static_cast<size_t>(k0) * c, c,
                        dst + kFwdK * ld, ld, kFwdK, n - k0, c);
   };
   stage<kFwdThreads>(q + base + static_cast<size_t>(q0) * c, c, q_s, ld,
-                     kFwdQ, n - q0, c);
+                     kQ, n - q0, c);
   stage_kv(0);
   cp_async_commit();
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};   // this warp's columns only
-  float acc[kHalfTiles][4];
+  float acc[kAccTiles][4];
 #pragma unroll
-  for (int i = 0; i < kHalfTiles; ++i)
+  for (int i = 0; i < kAccTiles; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   for (int tile = 0; tile < tiles; ++tile) {
+    if constexpr (kStages == 1) {
+      if (tile > 0) {
+        __syncthreads();  // every warp is done with the last tile's K and V
+        stage_kv(tile);
+        cp_async_commit();
+      }
+    }
     cp_async_wait<0>();
     __syncthreads();  // this tile has landed; the other stage is free
-    if (tile + 1 < tiles) stage_kv(tile + 1);
-    cp_async_commit();
-    const float* k_s = kv_s + (tile & 1) * 2 * kFwdK * ld;
+    if constexpr (kStages == 2) {
+      if (tile + 1 < tiles) stage_kv(tile + 1);
+      cp_async_commit();
+    }
+    const float* k_s = kv_s + (tile & (kStages - 1)) * 2 * kFwdK * ld;
     const float* v_s = k_s + kFwdK * ld;
-    const int k0 = tile * kFwdK + 16 * half;
+    const int n0 = 8 * kSTiles * way;
+    const int k0 = tile * kFwdK + n0;
 
-    float s[2][4];
-    logits<T, 2>(q_s, k_s, ld, c, m0, 16 * half, s);
+    float s[kSTiles][4];
+    logits<T, kSTiles>(q_s, k_s, ld, c, m0, n0, s);
 
     // Online softmax on the fragments: this thread holds rows g (e = 0, 1)
     // and g + 8 (e = 2, 3) of the warp's 16; a quad shares a row, and the
-    // two warps of a row group swap their row maxima through red_s.
+    // warps of a row group swap their row maxima through red_s.
     float row_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kSTiles; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool valid = k0 + 8 * j + 2 * t + (e & 1) < n;
@@ -564,7 +613,7 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
                          __shfl_xor_sync(0xffffffffu, row_max[r], 1));
       row_max[r] = fmaxf(row_max[r],
                          __shfl_xor_sync(0xffffffffu, row_max[r], 2));
-      if (t == 0) red_s[half * kFwdQ + m0 + g + 8 * r] = row_max[r];
+      if (t == 0) red_s[way * kQ + m0 + g + 8 * r] = row_max[r];
     }
     __syncthreads();
     float alpha[2];
@@ -572,20 +621,24 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = m0 + g + 8 * r;
-      // Every tile holds a valid column, so the max is finite; both warps
-      // of the pair compute the same bits.
-      const float m_new = fmaxf(m[r], fmaxf(red_s[row], red_s[kFwdQ + row]));
+      // Every tile holds a valid column, so the max is finite; every warp
+      // of the row group computes the same bits.
+      float tile_max = red_s[row];
+#pragma unroll
+      for (int w = 1; w < kWays; ++w)
+        tile_max = fmaxf(tile_max, red_s[w * kQ + row]);
+      const float m_new = fmaxf(m[r], tile_max);
       alpha[r] = expf(m[r] - m_new);  // 0 on the first tile
       m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kSTiles; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float p0 = expf(s[j][2 * r] - m[r]);
         const float p1 = expf(s[j][2 * r + 1] - m[r]);
         row_sum[r] += p0 + p1;
-        store2(p_s + (m0 + g + 8 * r) * kFwdPLd + 16 * half + 8 * j + 2 * t,
+        store2(p_s + (m0 + g + 8 * r) * kFwdPLd + n0 + 8 * j + 2 * t,
                round_like(p0, q), round_like(p1, q));
       }
 #pragma unroll
@@ -595,7 +648,7 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
       l[r] = l[r] * alpha[r] + row_sum[r];
     }
 #pragma unroll
-    for (int i = 0; i < kHalfTiles; ++i) {
+    for (int i = 0; i < kAccTiles; ++i) {
       acc[i][0] *= alpha[0];
       acc[i][1] *= alpha[0];
       acc[i][2] *= alpha[1];
@@ -611,9 +664,9 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
         Split a[4];
         load_a_perm(p_s, kFwdPLd, m0, kk, a);
         mma_tiles<true, kTileGroup>(
-            acc, a, [&](int i) { return 8 * (2 * i + half) < c; },
+            acc, a, [&](int i) { return 8 * (kWays * i + way) < c; },
             [&](int i, Split (&b)[2]) {
-              load_b_perm<true>(v_s, ld, kk, 8 * (2 * i + half), b);
+              load_b_perm<true>(v_s, ld, kk, 8 * (kWays * i + way), b);
             });
       }
     } else {
@@ -622,11 +675,11 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
         uint32_t a[4];
         load_a_bf16(p_s, kFwdPLd, m0, kk, a);
 #pragma unroll
-        for (int i = 0; i < kHalfTiles; ++i) {
-          const int n0 = 8 * (2 * i + half);
-          if (n0 < c) {
+        for (int i = 0; i < kAccTiles; ++i) {
+          const int col0 = 8 * (kWays * i + way);
+          if (col0 < c) {
             uint32_t b[2];
-            load_b_bf16(v_s, ld, kk, n0, b);
+            load_b_bf16(v_s, ld, kk, col0, b);
             mma_bf16(acc[i], a, b);
           }
         }
@@ -634,45 +687,49 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // l over the whole row: the two warps' sums, added in one order by both.
+  // l over the whole row: the warps' sums, added in one order by all.
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    if (t == 0) red_s[half * kFwdQ + m0 + g + 8 * r] = l[r];
+    if (t == 0) red_s[way * kQ + m0 + g + 8 * r] = l[r];
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + m0 + g + 8 * r;
     if (row >= n) continue;
-    const float l_row = red_s[m0 + g + 8 * r] + red_s[kFwdQ + m0 + g + 8 * r];
+    float l_row = red_s[m0 + g + 8 * r];
+#pragma unroll
+    for (int w = 1; w < kWays; ++w) l_row += red_s[w * kQ + m0 + g + 8 * r];
     const float inv = 1.f / l_row;
     T* out_row = o + base + static_cast<size_t>(row) * c;
 #pragma unroll
-    for (int i = 0; i < kHalfTiles; ++i) {
-      const int col = 8 * (2 * i + half) + 2 * t;
+    for (int i = 0; i < kAccTiles; ++i) {
+      const int col = 8 * (kWays * i + way) + 2 * t;
       if (col < c)
         store2(out_row + col, acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
     }
     // The backward recomputes P = exp(S - lse) from this row statistic.
-    if (lse != nullptr && half == 0 && t == 0)
+    if (lse != nullptr && way == 0 && t == 0)
       lse[static_cast<size_t>(batch) * n + row] = m[r] + logf(l_row);
   }
 }
 
-template <typename T, int kC>
+template <typename T, int kC, int kWays>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int n, int c, float scale, cudaStream_t stream) {
+  constexpr int kQ = fwd_rows<kWays>();
   const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kFwdQ + 4 * kFwdK) * (staged_width<T>(c) + kPad) +
-       kFwdQ * kFwdPLd + 2 * kFwdQ);
-  const long long q_tiles = (n + kFwdQ - 1) / kFwdQ;
+      (static_cast<size_t>(kQ + ways_stages<kWays>() * 2 * kFwdK) *
+           (staged_width<T>(c) + kPad) +
+       kQ * kFwdPLd + kWays * kQ);
+  const long long q_tiles = (n + kQ - 1) / kQ;
   const long long blocks = q_tiles * batch;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd<T, kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_attention_fwd<T, kC, kWays>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_fwd<T, kC><<<static_cast<unsigned>(blocks), kFwdThreads, smem,
-                           stream>>>(
+  flash_attention_fwd<T, kC, kWays><<<static_cast<unsigned>(blocks),
+                                      kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, n, c,
       static_cast<int>(q_tiles), scale);
@@ -706,13 +763,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // forward, plus the dS round trip (2 B N^2 x 4 bytes: 67 MB at
 // B, N = 128, 256) and the D pass. Shared memory of kernel 2 at C = 256:
 // K, V and two stages of Q and dO, 6 x 32 x (C + 4) floats, plus P and dP
-// tiles: 209 KB, raised per launch.
+// tiles: 209 KB, raised per launch. Past C = 256 (kWays = 4, see the top of
+// the file) kernel 2 takes 16 KV rows (S and dP tiles of 16 x 8, each warp
+// 16 rows x C / 8 channels of dV and dK) and one stage of Q and dO, and
+// kernel 3 32 query rows (each warp C / 4 channels).
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 256;
-constexpr int kBwdRows = 32;            // KV rows per block, query rows per tile
+constexpr int kBwdRows = 32;            // query rows per tile (and dS columns)
 constexpr int kPLd = kBwdRows + 4;      // P and dS tiles: 2 x 36 = 8 mod 32
-constexpr int kDqRows = 64;             // query rows per dQ block
 constexpr int kDsLd = kBwdRows + 8;     // dS tiles of the dQ kernel: 8 mod 32
 
 template <typename T>
@@ -745,7 +804,13 @@ __global__ void attention_bwd_delta(const T* __restrict__ o,
   if (lane == 0) delta[row] = sum;
 }
 
-template <typename T, int kC>
+// KV rows per dK/dV block: 32 with kWays = 2 (C <= 256), 16 with kWays = 4.
+template <int kWays>
+__host__ __device__ constexpr int dkdv_rows() {
+  return 64 / kWays;
+}
+
+template <typename T, int kC, int kWays>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -756,30 +821,38 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                          int ds_ld, float scale) {
   const int c = kC > 0 ? kC : c_arg;
   constexpr bool kSplit = std::is_same<T, float>::value;  // Q, dO not exact
-  constexpr int kTiles = kMaxC / 32;  // channel tiles per warp: 8 at C = 256
+  constexpr int kKv = dkdv_rows<kWays>();
+  constexpr int kStages = ways_stages<kWays>();
+  constexpr int kRowGroups = kKv / 16;       // of dK, dV rows
+  constexpr int kGroups = 8 / kRowGroups;    // of channels: 4 or 8
+  constexpr int kTiles = ways_max_c<kWays>() / (8 * kGroups);  // 8
+  constexpr int kSTiles = kKv / 16;          // logit tiles of a warp
   extern __shared__ __align__(16) float smem[];
   const int ld = staged_width<T>(c) + kPad;
   float* k_s = smem;
-  float* v_s = k_s + kBwdRows * ld;
-  float* qd_s = v_s + kBwdRows * ld;           // [2 stages][Q, dO]
-  float* p_s = qd_s + 4 * kBwdRows * ld;
+  float* v_s = k_s + kKv * ld;
+  float* qd_s = v_s + kKv * ld;                // [kStages][Q, dO]
+  float* p_s = qd_s + kStages * 2 * kBwdRows * ld;
   float* dp_s = p_s + kBwdRows * kPLd;
-  float* stats_s = dp_s + kBwdRows * kPLd;     // [2 stages][lse, D]
+  float* stats_s = dp_s + kBwdRows * kPLd;     // [kStages][lse, D]
 
   const int batch = blockIdx.x / kv_tiles;
-  const int k0 = (blockIdx.x - batch * kv_tiles) * kBwdRows;
+  const int k0 = (blockIdx.x - batch * kv_tiles) * kKv;
   const size_t base = static_cast<size_t>(batch) * n * c;
   const size_t row_base = static_cast<size_t>(batch) * n;
   float* ds_rows = ds_out + row_base * ds_ld;
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int sm = 16 * ((warp >> 1) & 1), sn = 16 * (warp & 1);  // S or dP
-  const int am = 16 * (warp & 1), ag = warp >> 1;  // its dK, dV rows, channels
+  // S or dP: 16 query rows x kKv / 2 KV columns.
+  const int sm = 16 * ((warp >> 1) & 1), sn = (kKv / 2) * (warp & 1);
+  // Its dK, dV rows and channel group.
+  const int am = 16 * (warp % kRowGroups), ag = warp / kRowGroups;
   const int tiles = (n + kBwdRows - 1) / kBwdRows;
 
   auto stage_query_tile = [&](int tile) {
     const int row0 = tile * kBwdRows;
-    float* dst = qd_s + (tile & 1) * 2 * kBwdRows * ld;
+    const int stage_i = tile & (kStages - 1);
+    float* dst = qd_s + stage_i * 2 * kBwdRows * ld;
     stage<kBwdThreads>(q + base + static_cast<size_t>(row0) * c, c, dst, ld,
                        kBwdRows, n - row0, c);
     stage<kBwdThreads>(dout + base + static_cast<size_t>(row0) * c, c,
@@ -787,15 +860,15 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     if (threadIdx.x < 2 * kBwdRows) {
       const int r = threadIdx.x % kBwdRows;
       const float* src = threadIdx.x < kBwdRows ? lse : delta;
-      stats_s[(tile & 1) * 2 * kBwdRows + threadIdx.x] =
+      stats_s[stage_i * 2 * kBwdRows + threadIdx.x] =
           row0 + r < n ? src[row_base + row0 + r] : 0.f;
     }
   };
 
   stage<kBwdThreads>(k + base + static_cast<size_t>(k0) * c, c, k_s, ld,
-                     kBwdRows, n - k0, c);
+                     kKv, n - k0, c);
   stage<kBwdThreads>(v + base + static_cast<size_t>(k0) * c, c, v_s, ld,
-                     kBwdRows, n - k0, c);
+                     kKv, n - k0, c);
   stage_query_tile(0);
   cp_async_commit();
 
@@ -807,25 +880,35 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
   for (int tile = 0; tile < tiles; ++tile) {
+    if constexpr (kStages == 1) {
+      if (tile > 0) {
+        __syncthreads();  // every warp is done with the last query tile
+        stage_query_tile(tile);
+        cp_async_commit();
+      }
+    }
     cp_async_wait<0>();
     __syncthreads();  // this query tile has landed; the other stage is free
-    if (tile + 1 < tiles) stage_query_tile(tile + 1);
-    cp_async_commit();
-    const float* q_s = qd_s + (tile & 1) * 2 * kBwdRows * ld;
+    if constexpr (kStages == 2) {
+      if (tile + 1 < tiles) stage_query_tile(tile + 1);
+      cp_async_commit();
+    }
+    const float* q_s = qd_s + (tile & (kStages - 1)) * 2 * kBwdRows * ld;
     const float* do_s = q_s + kBwdRows * ld;
-    const float* lse_s = stats_s + (tile & 1) * 2 * kBwdRows;
+    const float* lse_s = stats_s + (tile & (kStages - 1)) * 2 * kBwdRows;
     const float* d_s = lse_s + kBwdRows;
     const int q0 = tile * kBwdRows;
 
-    // Warps 0-3 compute 16 x 16 tiles of S and keep P = exp(S scale - lse)
-    // (0 where masked); warps 4-7 the same tiles of dP.
-    float x[2][4];
+    // Warps 0-3 compute 16 x kKv / 2 tiles of S and keep
+    // P = exp(S scale - lse) (0 where masked); warps 4-7 the same tiles of
+    // dP.
+    float x[kSTiles][4];
     if (warp < 4)
-      logits<T, 2>(q_s, k_s, ld, c, sm, sn, x);
+      logits<T, kSTiles>(q_s, k_s, ld, c, sm, sn, x);
     else
-      logits<T, 2>(do_s, v_s, ld, c, sm, sn, x);
+      logits<T, kSTiles>(do_s, v_s, ld, c, sm, sn, x);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kSTiles; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = sm + g + 8 * r;
@@ -847,7 +930,7 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     // dS = P o (dP - D) for the dQ kernel, from the dP warps' registers.
     if (warp >= 4) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < kSTiles; ++j)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int i = sm + g + 8 * r;
@@ -869,14 +952,14 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       Split a_ds[4];
       load_a_perm_t(p_s, kPLd, am, kk, a_p);
       load_ds_perm_t(p_s, dp_s, d_s, kPLd, am, kk, a_ds);
-      auto live = [&](int i) { return 8 * (4 * i + ag) < c; };
+      auto live = [&](int i) { return 8 * (kGroups * i + ag) < c; };
       mma_tiles<kSplit, kTileGroup>(
           dv_acc, a_p, live, [&](int i, Split (&b)[2]) {
-            load_b_perm<kSplit>(do_s, ld, kk, 8 * (4 * i + ag), b);
+            load_b_perm<kSplit>(do_s, ld, kk, 8 * (kGroups * i + ag), b);
           });
       mma_tiles<kSplit, kTileGroup>(
           dk_acc, a_ds, live, [&](int i, Split (&b)[2]) {
-            load_b_perm<kSplit>(q_s, ld, kk, 8 * (4 * i + ag), b);
+            load_b_perm<kSplit>(q_s, ld, kk, 8 * (kGroups * i + ag), b);
           });
     }
   }
@@ -889,7 +972,7 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     T* dv_row = dv + base + static_cast<size_t>(row) * c;
 #pragma unroll
     for (int i = 0; i < kTiles; ++i) {
-      const int col = 8 * (4 * i + ag) + 2 * t;
+      const int col = 8 * (kGroups * i + ag) + 2 * t;
       if (col < c) {
         store2(dk_row + col, scale * dk_acc[i][2 * r],
                scale * dk_acc[i][2 * r + 1]);
@@ -899,33 +982,40 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int kC>
+// Query rows per dQ block: 16 for each group of kWays warps.
+template <int kWays>
+__host__ __device__ constexpr int dq_rows() {
+  return 16 * (8 / kWays);
+}
+
+template <typename T, int kC, int kWays>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_dq(const float* __restrict__ ds, const T* __restrict__ k,
                        T* __restrict__ dq, int n, int c_arg, int q_tiles,
                        int ds_ld, float scale) {
   const int c = kC > 0 ? kC : c_arg;
   constexpr bool kSplit = std::is_same<T, float>::value;  // K not exact
-  constexpr int kTiles = kMaxC / 16;  // channel tiles per warp: 16 at C = 256
+  constexpr int kRows = dq_rows<kWays>();
+  constexpr int kTiles = ways_max_c<kWays>() / (8 * kWays);  // 16 a warp
   extern __shared__ __align__(16) float smem[];
   const int ld = staged_width<T>(c) + kPad;
-  float* ds_s = smem;                          // [2 stages] 64 x kDsLd
-  float* k_s = ds_s + 2 * kDqRows * kDsLd;     // [2 stages] 32 x ld
+  float* ds_s = smem;                          // [2 stages] kRows x kDsLd
+  float* k_s = ds_s + 2 * kRows * kDsLd;       // [2 stages] 32 x ld
 
   const int batch = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x - batch * q_tiles) * kDqRows;
+  const int q0 = (blockIdx.x - batch * q_tiles) * kRows;
   const size_t base = static_cast<size_t>(batch) * n * c;
   const float* ds_rows =
       ds + (static_cast<size_t>(batch) * n + q0) * ds_ld;
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int am = 16 * (warp & 3), ah = warp >> 2;
+  const int am = 16 * (warp % (8 / kWays)), ah = warp / (8 / kWays);
   const int tiles = ds_ld / kBwdRows;
 
   auto stage_tile = [&](int tile) {
     const int k0 = tile * kBwdRows;
-    stage<kBwdThreads>(ds_rows + k0, ds_ld, ds_s + (tile & 1) * kDqRows * kDsLd,
-                       kDsLd, kDqRows, n - q0, kBwdRows);
+    stage<kBwdThreads>(ds_rows + k0, ds_ld, ds_s + (tile & 1) * kRows * kDsLd,
+                       kDsLd, kRows, n - q0, kBwdRows);
     stage<kBwdThreads>(k + base + static_cast<size_t>(k0) * c, c,
                        k_s + (tile & 1) * kBwdRows * ld, ld, kBwdRows, n - k0,
                        c);
@@ -944,16 +1034,16 @@ flash_attention_bwd_dq(const float* __restrict__ ds, const T* __restrict__ k,
     __syncthreads();  // this tile has landed; the other stage is free
     if (tile + 1 < tiles) stage_tile(tile + 1);
     cp_async_commit();
-    const float* a_s = ds_s + (tile & 1) * kDqRows * kDsLd;
+    const float* a_s = ds_s + (tile & 1) * kRows * kDsLd;
     const float* b_s = k_s + (tile & 1) * kBwdRows * ld;
 #pragma unroll
     for (int kk = 0; kk < kBwdRows; kk += 8) {
       Split a[4];
       load_a_perm(a_s, kDsLd, am, kk, a);
       mma_tiles<kSplit, kTileGroup>(
-          acc, a, [&](int i) { return 8 * (2 * i + ah) < c; },
+          acc, a, [&](int i) { return 8 * (kWays * i + ah) < c; },
           [&](int i, Split (&b)[2]) {
-            load_b_perm<kSplit>(b_s, ld, kk, 8 * (2 * i + ah), b);
+            load_b_perm<kSplit>(b_s, ld, kk, 8 * (kWays * i + ah), b);
           });
     }
   }
@@ -965,24 +1055,29 @@ flash_attention_bwd_dq(const float* __restrict__ ds, const T* __restrict__ k,
     T* dq_row = dq + base + static_cast<size_t>(row) * c;
 #pragma unroll
     for (int i = 0; i < kTiles; ++i) {
-      const int col = 8 * (2 * i + ah) + 2 * t;
+      const int col = 8 * (kWays * i + ah) + 2 * t;
       if (col < c)
         store2(dq_row + col, scale * acc[i][2 * r], scale * acc[i][2 * r + 1]);
     }
   }
 }
 
-template <typename T, int kC>
+template <typename T, int kC, int kWays>
 int launch_backward(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* scratch, void* dq, void* dk, void* dv, int batch,
                     int n, int c, float scale, cudaStream_t stream) {
+  constexpr int kKv = dkdv_rows<kWays>();
+  constexpr int kStages = ways_stages<kWays>();
+  constexpr int kDqRows = dq_rows<kWays>();
   const long long rows = static_cast<long long>(batch) * n;
   const int ds_ld = (n + kBwdRows - 1) / kBwdRows * kBwdRows;
   float* ds = scratch;
   float* delta = scratch + rows * ds_ld;
   const long long delta_blocks = (rows * 32 + kBwdThreads - 1) / kBwdThreads;
-  const long long kv_tiles = ds_ld / kBwdRows;
+  // dK/dV blocks cover every column of dS (ds_ld, a multiple of 32), so the
+  // dQ kernel reads zeros past N.
+  const long long kv_tiles = ds_ld / kKv;
   const long long q_tiles = (n + kDqRows - 1) / kDqRows;
   if (kv_tiles * batch > 0x7fffffffLL || q_tiles * batch > 0x7fffffffLL ||
       delta_blocks > 0x7fffffffLL)
@@ -999,29 +1094,31 @@ int launch_backward(const void* q, const void* k, const void* v,
 
   const int ld = staged_width<T>(c) + kPad;
   const size_t smem_dkdv = sizeof(float) *
-      (6 * kBwdRows * ld + 2 * kBwdRows * kPLd + 4 * kBwdRows);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, kC>,
+      ((2 * kKv + kStages * 2 * kBwdRows) * ld + 2 * kBwdRows * kPLd +
+       kStages * 2 * kBwdRows);
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, kC, kWays>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dkdv));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dkdv<T, kC><<<static_cast<unsigned>(kv_tiles * batch),
-                                kBwdThreads, smem_dkdv, stream>>>(
-      qt, kt, static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      delta, ds, static_cast<T*>(dk), static_cast<T*>(dv), n, c,
-      static_cast<int>(kv_tiles), ds_ld, scale);
+  flash_attention_bwd_dkdv<T, kC, kWays>
+      <<<static_cast<unsigned>(kv_tiles * batch), kBwdThreads, smem_dkdv,
+         stream>>>(qt, kt, static_cast<const T*>(v),
+                   static_cast<const T*>(dout), lse, delta, ds,
+                   static_cast<T*>(dk), static_cast<T*>(dv), n, c,
+                   static_cast<int>(kv_tiles), ds_ld, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem_dq = sizeof(float) *
       (2 * kDqRows * kDsLd + 2 * kBwdRows * ld);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, kC>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, kC, kWays>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dq));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dq<T, kC><<<static_cast<unsigned>(q_tiles * batch),
-                              kBwdThreads, smem_dq, stream>>>(
-      ds, kt, static_cast<T*>(dq), n, c, static_cast<int>(q_tiles), ds_ld,
-      scale);
+  flash_attention_bwd_dq<T, kC, kWays>
+      <<<static_cast<unsigned>(q_tiles * batch), kBwdThreads, smem_dq,
+         stream>>>(ds, kt, static_cast<T*>(dq), n, c,
+                   static_cast<int>(q_tiles), ds_ld, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1029,7 +1126,7 @@ int launch_backward(const void* q, const void* k, const void* v,
 
 // q, k, v, o: contiguous [batch, n, c] device buffers of one dtype
 // (0 = float32, 1 = bfloat16), 16-byte aligned. c is a multiple of 8 up to
-// 256. lse is null or an fp32 [batch, n] buffer that receives each row's
+// 512. lse is null or an fp32 [batch, n] buffer that receives each row's
 // log-sum-exp of the scaled logits. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int flash_attention_forward(const void* q, const void* k,
@@ -1039,13 +1136,24 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   if (batch < 1 || n < 1 || c < 8 || c > kMaxC || c % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // C = 256 (every attention of the NCSN++ models) gets its own
-  // instantiation, with all offsets known to the compiler.
-  if (dtype == 0 && c == kMaxC)
-    return launch<float, kMaxC>(q, k, v, o, lse, batch, n, c, scale, s);
-  if (dtype == 0) return launch<float, 0>(q, k, v, o, lse, batch, n, c, scale, s);
+  // C = 256 (every 32^2 NCSN++ attention) and C = 512 get their own
+  // instantiations, with all offsets known to the compiler.
+  if (c <= ways_max_c<2>()) {
+    if (dtype == 0 && c == 256)
+      return launch<float, 256, 2>(q, k, v, o, lse, batch, n, c, scale, s);
+    if (dtype == 0)
+      return launch<float, 0, 2>(q, k, v, o, lse, batch, n, c, scale, s);
+    if (dtype == 1)
+      return launch<__nv_bfloat16, 0, 2>(q, k, v, o, lse, batch, n, c, scale,
+                                         s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0 && c == 512)
+    return launch<float, 512, 4>(q, k, v, o, lse, batch, n, c, scale, s);
+  if (dtype == 0)
+    return launch<float, 0, 4>(q, k, v, o, lse, batch, n, c, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 0>(q, k, v, o, lse, batch, n, c, scale, s);
+    return launch<__nv_bfloat16, 0, 4>(q, k, v, o, lse, batch, n, c, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1071,14 +1179,26 @@ extern "C" int flash_attention_backward(const void* q, const void* k,
   if (batch < 1 || n < 1 || c < 8 || c > kMaxC || c % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && c == kMaxC)
-    return launch_backward<float, kMaxC>(q, k, v, o, dout, lse, scratch, dq,
-                                         dk, dv, batch, n, c, scale, s);
+  if (c <= ways_max_c<2>()) {
+    if (dtype == 0 && c == 256)
+      return launch_backward<float, 256, 2>(q, k, v, o, dout, lse, scratch,
+                                            dq, dk, dv, batch, n, c, scale, s);
+    if (dtype == 0)
+      return launch_backward<float, 0, 2>(q, k, v, o, dout, lse, scratch, dq,
+                                          dk, dv, batch, n, c, scale, s);
+    if (dtype == 1)
+      return launch_backward<__nv_bfloat16, 0, 2>(
+          q, k, v, o, dout, lse, scratch, dq, dk, dv, batch, n, c, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0 && c == 512)
+    return launch_backward<float, 512, 4>(q, k, v, o, dout, lse, scratch, dq,
+                                          dk, dv, batch, n, c, scale, s);
   if (dtype == 0)
-    return launch_backward<float, 0>(q, k, v, o, dout, lse, scratch, dq, dk,
-                                     dv, batch, n, c, scale, s);
+    return launch_backward<float, 0, 4>(q, k, v, o, dout, lse, scratch, dq,
+                                        dk, dv, batch, n, c, scale, s);
   if (dtype == 1)
-    return launch_backward<__nv_bfloat16, 0>(q, k, v, o, dout, lse, scratch,
-                                             dq, dk, dv, batch, n, c, scale, s);
+    return launch_backward<__nv_bfloat16, 0, 4>(
+        q, k, v, o, dout, lse, scratch, dq, dk, dv, batch, n, c, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,7 +26,8 @@ def qkv(b, n, c, seed=0, scale=2.0):
                for _ in range(3))
 
 
-@pytest.mark.parametrize("b,n,c", [(2, 16, 32), (2, 64, 16), (2, 256, 32)])
+@pytest.mark.parametrize("b,n,c", [(2, 16, 32), (2, 64, 16), (2, 256, 32),
+                                   (2, 64, 512), (1, 64, 384)])
 def test_dense_matches_jax_flash_and_dense(b, n, c):
   q, k, v = qkv(b, n, c)
   got = attention.dense_attention(*map(torch.from_numpy, (q, k, v))).numpy()
@@ -63,7 +64,7 @@ def test_wrapper_rejects_dtypes(dtype):
     attention.attention(q, q, q)
 
 
-@pytest.mark.parametrize("shape", [(1, 16, 12), (1, 16, 264), (1, 16, 0),
+@pytest.mark.parametrize("shape", [(1, 16, 12), (1, 16, 520), (1, 16, 0),
                                    (16, 16), (1, 1, 16, 16)])
 def test_wrapper_rejects_shapes(shape):
   q = torch.zeros(shape)
@@ -82,7 +83,8 @@ def test_wrapper_rejects_mismatch_and_noncontiguous():
     attention.attention(strided, strided, strided)
 
 
-@pytest.mark.parametrize("b,n,c", [(2, 16, 32), (2, 64, 16), (1, 256, 32)])
+@pytest.mark.parametrize("b,n,c", [(2, 16, 32), (2, 64, 16), (1, 256, 32),
+                                   (2, 64, 512), (1, 64, 384)])
 def test_dense_backward_matches_jax_flash_bwd_and_autograd(b, n, c):
   """The plain backward against JAX ``_flash_bwd_impl`` (what the JAX
   package's custom_vjp runs) and against autograd through the plain
@@ -134,7 +136,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,c", [(64, 256, 256), (64, 16, 256),
-                                   (2, 1024, 256), (3, 200, 64), (2, 64, 8)])
+                                   (2, 1024, 256), (3, 200, 64), (2, 64, 8),
+                                   (8, 256, 512), (8, 64, 512),
+                                   (4, 200, 512), (1, 1024, 384),
+                                   (2, 40, 264)])
 def test_kernel_matches_plain_version(cuda_device, b, n, c):
   torch.backends.cuda.matmul.allow_tf32 = False
   q, k, v = (torch.from_numpy(a).to(cuda_device)
@@ -152,9 +157,10 @@ def _err(a, b):
 
 
 @pytest.mark.cuda
-def test_kernel_bf16_no_worse_than_dense(cuda_device):
+@pytest.mark.parametrize("c", [256, 512])
+def test_kernel_bf16_no_worse_than_dense(cuda_device, c):
   torch.backends.cuda.matmul.allow_tf32 = False
-  q, k, v = (torch.from_numpy(a).to(cuda_device) for a in qkv(8, 256, 256))
+  q, k, v = (torch.from_numpy(a).to(cuda_device) for a in qkv(8, 256, c))
   exact = attention.dense_attention(q.double(), k.double(), v.double())
   qb, kb, vb = (t.bfloat16() for t in (q, k, v))
   err_kernel = _err(attention.attention(qb, kb, vb), exact)
@@ -163,14 +169,14 @@ def test_kernel_bf16_no_worse_than_dense(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 256])
-def test_kernel_stable_at_large_logits(cuda_device, n):
+@pytest.mark.parametrize("n,c", [(16, 256), (256, 256), (256, 512)])
+def test_kernel_stable_at_large_logits(cuda_device, n, c):
   """Logits x30: finite, and no further from the fp64 result than the
   plain fp32 path (x1.5 + 2e-5); at this scale the plain path is itself
   ~1e-4 from the fp64 result, so the bound is against fp64."""
   torch.backends.cuda.matmul.allow_tf32 = False
   q, k, v = (torch.from_numpy(a).to(cuda_device)
-             for a in qkv(16, n, 256, scale=1.0))
+             for a in qkv(16, n, c, scale=1.0))
   q = q * 30
   exact = attention.dense_attention(q.double(), k.double(), v.double())
   out = attention.attention(q, k, v)
@@ -191,7 +197,10 @@ def _grads_through_kernel(q, k, v, dout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,c", [(128, 256, 256), (128, 16, 256),
                                    (2, 1024, 256), (1, 1024, 128),
-                                   (4, 200, 256), (3, 40, 8)])
+                                   (4, 200, 256), (3, 40, 8),
+                                   (8, 256, 512), (8, 64, 512),
+                                   (4, 200, 512), (1, 1024, 384),
+                                   (3, 40, 504)])
 def test_kernel_backward_matches_plain_version(cuda_device, b, n, c):
   torch.backends.cuda.matmul.allow_tf32 = False
   gen = torch.Generator(device=cuda_device).manual_seed(b + n + c)
@@ -208,13 +217,14 @@ def test_kernel_backward_matches_plain_version(cuda_device, b, n, c):
 
 
 @pytest.mark.cuda
-def test_kernel_backward_bf16_and_large_logits(cuda_device):
+@pytest.mark.parametrize("c", [256, 512])
+def test_kernel_backward_bf16_and_large_logits(cuda_device, c):
   """bf16: no further from the fp64 gradients than the plain bf16 path
   (x1.5 + 1e-3); logits x30: finite, and no further from fp64 than the
   plain fp32 path (x1.5 + 5e-4)."""
   torch.backends.cuda.matmul.allow_tf32 = False
   gen = torch.Generator(device=cuda_device).manual_seed(3)
-  q, k, v, dout = (torch.randn(8, 256, 256, device=cuda_device, generator=gen)
+  q, k, v, dout = (torch.randn(8, 256, c, device=cuda_device, generator=gen)
                    for _ in range(4))
   for scale, dtype, slack in ((1.0, torch.bfloat16, 1e-3),
                               (30.0, torch.float32, BWD_TOL)):
@@ -232,11 +242,12 @@ def test_kernel_backward_bf16_and_large_logits(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernel_backward_is_bitwise_deterministic(cuda_device):
+@pytest.mark.parametrize("c", [256, 512])
+def test_kernel_backward_is_bitwise_deterministic(cuda_device, c):
   """The backward has one writer per output row and sums in a fixed order
   (dS goes through a scratch, not atomics): two runs give the same bits."""
   gen = torch.Generator(device=cuda_device).manual_seed(7)
-  q, k, v, dout = (torch.randn(16, 256, 256, device=cuda_device,
+  q, k, v, dout = (torch.randn(16, 256, c, device=cuda_device,
                                generator=gen) for _ in range(4))
   first = _grads_through_kernel(q, k, v, dout)
   second = _grads_through_kernel(q, k, v, dout)
@@ -267,7 +278,8 @@ def test_kernel_bf16_narrow_channels(cuda_device, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c", [(3, 1, 64), (2, 200, 256)])
+@pytest.mark.parametrize("b,n,c", [(3, 1, 64), (2, 200, 256), (3, 1, 512),
+                                   (2, 200, 384)])
 def test_kernel_ragged_lengths(cuda_device, b, n, c):
   """N = 1 (one valid row and column in every tile) and N = 200 (ragged
   last tiles): forward within 2e-5, gradients within 5e-4 of plain."""

@@ -39,6 +39,7 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.losses",
     "score_sde_pytorch_tpu_torch.interop",
     "score_sde_pytorch_tpu_torch.sampling",
+    "score_sde_pytorch_tpu_torch.controllable_generation",
     "score_sde_pytorch_tpu_torch.ode",
     "score_sde_pytorch_tpu_torch.likelihood",
     "score_sde_pytorch_tpu_torch.inception",
@@ -212,6 +213,64 @@ def test_vp_slice_configs_train_and_sample_with_the_jax_package_blocked():
   assert out.count(" VPSDE ") == 4 and " SubVPSDE " in out
 
 
+HIRES_CONFIGS = ["ve/church_ncsnpp_continuous.py",
+                 "ve/celebahq_ncsnpp_continuous.py", "vp/ddpm/church.py"]
+
+
+def test_hires_and_controllable_run_with_the_jax_package_blocked():
+  """The 256² and 1024² configs at tiny width (NCSN++ with both pyramids
+  and remat, the 256² DDPM) take one train step each, and the church
+  NCSN++ inpaints and colorizes, in a child where jax, flax and the JAX
+  package cannot be imported."""
+  out = run_child(textwrap.dedent(f"""
+      import torch
+      from score_sde_pytorch_tpu_torch import configs, losses, sampling
+      from score_sde_pytorch_tpu_torch import controllable_generation as cg
+      from score_sde_pytorch_tpu_torch import sde as sde_lib
+      from score_sde_pytorch_tpu_torch.models import utils as mutils
+      tiny = ['model.nf=16', 'model.ch_mult=(1,2,2)',
+              'model.num_res_blocks=1', 'model.attn_resolutions=(8,)',
+              'data.image_size=16']
+      for rel in {HIRES_CONFIGS!r}:
+        cfg = configs.load_config(
+            'score_sde_pytorch_tpu_torch/configs/' + rel, tiny)
+        model = mutils.create_model(cfg, 'cpu',
+                                    torch.Generator().manual_seed(0))
+        state = losses.init_train_state(cfg, model, 'cpu')
+        sde, tc = sde_lib.build_sde(cfg), cfg.training
+        step = losses.get_step_fn(
+            sde, train=True, optimize_fn=losses.optimization_manager(cfg),
+            reduce_mean=tc.reduce_mean, continuous=tc.continuous,
+            likelihood_weighting=tc.likelihood_weighting)
+        loss = step(state, torch.rand(2, 3, 16, 16), state['generator'])
+        assert torch.isfinite(loss), rel
+        print(rel, cfg.model.get('remat', False), float(loss))
+      cfg = configs.load_config(
+          'score_sde_pytorch_tpu_torch/configs/' + {HIRES_CONFIGS[0]!r},
+          tiny + ['model.num_scales=2'])
+      model = mutils.create_model(cfg, 'cpu',
+                                  torch.Generator().manual_seed(0))
+      sde = sde_lib.build_sde(cfg)
+      args = (sde, model, sampling.get_predictor('reverse_diffusion'),
+              sampling.get_corrector('langevin'), lambda x: x, 0.16)
+      data = torch.rand(2, 16, 16, 3)
+      mask = torch.zeros_like(data)
+      mask[:, :8] = 1.0
+      g = torch.Generator().manual_seed(1)
+      out = cg.get_pc_inpainter(*args, continuous=True)(g, data, mask)
+      assert torch.isfinite(out).all() and out.shape == data.shape
+      gray = data[..., :1].expand(-1, -1, -1, 3)
+      out = cg.get_pc_colorizer(*args, continuous=True)(g, gray)
+      assert torch.isfinite(out).all() and out.shape == data.shape
+      leaked = [m for m, v in sys.modules.items()
+                if v is not None and m.split('.')[0] in {JAX_NAMES!r}]
+      assert not leaked, leaked
+      print('ok')
+      """), OMP_NUM_THREADS=1)
+  assert out.strip().endswith("ok")
+  assert out.count(" True ") == 2  # the NCSN++ configs train with remat
+
+
 def test_vp_cli_recipe_runs_with_the_jax_package_blocked(tmp_path):
   """The tiny VP CLI recipe on vp/cifar10_ddpmpp_continuous.py:
   train (2 steps, an Euler–Maruyama snapshot grid), sample, and eval with
@@ -309,8 +368,20 @@ def test_bad_overrides_raise(override, error):
 @pytest.mark.parametrize("override", ["model.remat=True",
                                       "model.dtype=bfloat16"])
 def test_unsupported_settings_raise(override):
-  with pytest.raises(NotImplementedError):
-    configs.load_config(FLAGSHIP, [override])
+  """model.dtype other than float32 raises. model.remat raised until remat
+  was ported: it now loads, with model.remat_min_res, and NCSN++ takes both
+  up (its gradients: tests/test_torch_hires.py)."""
+  if override != "model.remat=True":
+    with pytest.raises(NotImplementedError):
+      configs.load_config(FLAGSHIP, [override])
+    return
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  cfg = configs.load_config(FLAGSHIP, [
+      override, "model.remat_min_res=16", "model.nf=16",
+      "model.ch_mult=(1,2)", "model.num_res_blocks=1",
+      "model.attn_resolutions=(8,)", "data.image_size=16"])
+  model = mutils.create_model(cfg, "cpu", torch.Generator().manual_seed(0))
+  assert (model.remat, model.remat_min_res) == (True, 16)
 
 
 @pytest.mark.parametrize("mode", ["eval"])
