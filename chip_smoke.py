@@ -6,7 +6,7 @@ NVIDIA GPU. Run it from the root of a checkout:
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and imports nothing of
 JAX or of the JAX package. Phases, each of which fails the run if it fails
-(about 11 minutes on one H100):
+(about 15 minutes on one H100):
 
 1. the card's name and power limit; the kernels built from
    score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
@@ -87,14 +87,29 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails
 17. [hires-1024]: the full-width ve/celebahq_ncsnpp_continuous.py (1024²,
    attention at C = 512): forward through the kernels against the plain
    attention, and the train step with remat at its batch of 8 with its
-   peak memory, driven directly.
+   peak memory, driven directly;
+18. [kernel-bf16] (with the kernel phases, TF32 off): the attention
+   kernels in bf16 at the bf16 files' shapes, forward and backward, held
+   to the plain bf16 version and fp64 and timed against SDPA and the
+   bound at bf16's peak;
+19. [ncsn*], [ncsnv2*]: NCSN v1 (ve/ncsn/cifar10.py) and NCSNv2
+   (ve/ncsnv2/cifar10.py, bedroom.py, an ncsnv2_256 override) at full
+   width: forwards against the CPU, ``main --mode train`` and ALD
+   ``main --mode sample``, one sampler step's peak memory at batch 1024,
+   the 128² train step;
+20. [bf16-church*], [bf16-1024]: the two bf16 files: ``main --mode
+   train`` and a resume, ``--mode sample``, the train step's time and
+   memory in bf16 and fp32, the bf16 forward's distance from fp32; the
+   1024² remat train step.
 
 Network evaluations are counted with a forward hook (the PC sampler's NFE
-is N·(n_steps + 1) whatever the corrector), and every run above holds the
-attention launches per evaluation to 6 (NCSN++/DDPM++ at 32²), 4 (the
-DDPM at 32² and 256², the church NCSN++), 7 (multiattn) and 3 (1024²),
-and the backward calls to as many per train step (remat recomputes the
-resblocks, not the attention) and per bits/dim drift evaluation.
+is N·(n_steps + 1) whatever the corrector; the "none" predictor evaluates
+nothing), and every run above holds the attention launches per evaluation
+to 6 (NCSN++/DDPM++ at 32²), 4 (the DDPM at 32² and 256², the church
+NCSN++ in fp32 and bf16), 7 (multiattn), 3 (1024², fp32 and bf16) and 0
+(NCSN, NCSNv2), and the backward calls to as many per train step (remat
+recomputes the resblocks, not the attention) and per bits/dim drift
+evaluation.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
@@ -142,8 +157,10 @@ BWD_TOL = 5e-4               # the JAX package's gradient bound
 ACT_SHAPES = [(128, 256, 16, 16), (128, 128, 32, 32)]
 ACT_TOL = 1e-6
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
-# tensor cores' TF32 rate, the card's fastest on fp32 inputs, and HBM.
+# tensor cores' TF32 rate, the card's fastest on fp32 inputs, their bf16
+# rate, and HBM.
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 PROFILE_BATCH = 64           # the sampler's profiled window
 PROFILE_SCALES = 10          # 20 NFE
@@ -192,6 +209,22 @@ DDPM256_TRAIN_BATCH = 8      # a batch that fits without remat (config: 64)
 DDPM256_SCALES = 25          # discrete VP rules need num_scales > beta_max
 HQ1024_TRAIN_BATCH = 8       # the config's own
 NO_REMAT_BATCHES = (64, 32, 16, 8, 4)
+# The bf16 attention of the bf16 files: church (train batch 32) and 1024²
+# (batch 8), at their 16² and bottleneck grids.
+BF16_SHAPES = [(32, 256, 256), (32, 16, 256), (8, 256, 512), (8, 64, 512)]
+NCSN_CONFIG = os.path.join(CONFIGS, "ve", "ncsn", "cifar10.py")
+NCSNV2_CONFIG = os.path.join(CONFIGS, "ve", "ncsnv2", "cifar10.py")
+BEDROOM_CONFIG = os.path.join(CONFIGS, "ve", "ncsnv2", "bedroom.py")
+BF16_CHURCH_CONFIG = os.path.join(CONFIGS, "tpu", "church_256_ncsnpp_tpu.py")
+BF16_1024_CONFIG = os.path.join(CONFIGS, "tpu", "celebahq_1024_ncsnpp_tpu.py")
+NCSN_SAMPLE_BATCH = 64
+NCSN_TRAIN_STEPS = 5         # then a resume to 10
+NCSNV2_SCALES = 20           # num_scales cut from 232 for the time
+BEDROOM_BATCHES = (128, 64, 32)
+V2_256_BATCH = 4
+BF16_CHURCH_ATTN = 4         # 3 x [B, 256, 256] and 1 x [B, 16, 256]
+BF16_1024_ATTN = 3           # 2 x [B, 256, 512] and 1 x [B, 64, 512]
+CHURCH_FP32_TRAIN_BATCH = 64  # [hires-memory]'s remat step, for comparison
 
 
 def check(ok: bool, what: str) -> None:
@@ -205,14 +238,14 @@ def say(*parts) -> None:
 
 @contextlib.contextmanager
 def network_evals(torch):
-  """Counts score-network evaluations (forwards of an NCSN++ or a DDPM)
-  while it is open, as ``count[0]``: the real evaluations behind a
-  sampler's reported NFE."""
-  from score_sde_pytorch_tpu_torch.models import ddpm, ncsnpp
+  """Counts score-network evaluations (forwards of an NCSN++, a DDPM or a
+  RefineNet of the NCSN family) while it is open, as ``count[0]``: the
+  real evaluations behind a sampler's reported NFE."""
+  from score_sde_pytorch_tpu_torch.models import ddpm, ncsnpp, ncsnv2
   count = [0]
 
   def hook(module, args):
-    if isinstance(module, (ncsnpp.NCSNpp, ddpm.DDPM)):
+    if isinstance(module, (ncsnpp.NCSNpp, ddpm.DDPM, ncsnv2._RefineNet)):
       count[0] += 1
 
   handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
@@ -255,10 +288,11 @@ def time_ms(torch, fn, iters: int = 50) -> float:
   return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple:
+def bound(flops: float, nbytes: float, peak: float = TF32_FLOPS) -> tuple:
   """The least time the card could take, in ms, and what bounds it: the
-  larger of the operations at the TF32 peak and the bytes at HBM's rate."""
-  ops_ms = flops / TF32_FLOPS * 1e3
+  larger of the operations at ``peak`` (the TF32 peak unless given) and
+  the bytes at HBM's rate."""
+  ops_ms = flops / peak * 1e3
   bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
   return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -749,9 +783,14 @@ def _ckpt_checks(torch, path, step, initial, ema_rate) -> None:
              if not k.endswith(("sigmas", "all_modules.0.W"))]
   check(len(weights) == len(ema["shadow_params"]) == len(initial),
         f"{path}: parameter lists of different lengths")
-  check(any(not torch.equal(w, e) for w, e in zip(weights,
-                                                  ema["shadow_params"])),
-        f"{path}: the EMA equals the weights")
+  if ema_rate > 0:
+    check(any(not torch.equal(w, e) for w, e in zip(weights,
+                                                    ema["shadow_params"])),
+          f"{path}: the EMA equals the weights")
+  else:  # the NCSN v1 files' rate 0: the weights, up to the update's rounding
+    check(all(torch.allclose(w, e, rtol=1e-5, atol=1e-6) for w, e in zip(
+        weights, ema["shadow_params"])), f"{path}: an EMA of rate 0 is not "
+          "the weights")
   check(any(not torch.equal(w0, e) for w0, e in zip(initial,
                                                     ema["shadow_params"])),
         f"{path}: the EMA equals the initial weights")
@@ -1804,6 +1843,346 @@ def phase_hires_1024(torch, attn, card_line: str) -> tuple:
   return (HQ1024_ATTN_PER_FORWARD * steps, HQ1024_ATTN_PER_FORWARD * steps)
 
 
+def phase_kernel_bf16(torch, attn, card_line: str) -> None:
+  """[kernel-bf16]: the attention kernels in bf16 at the bf16 files' shapes
+  (TF32 off): forward and backward against the plain bf16 version and
+  against fp64, the kernel's error to fp64 no larger than the plain bf16
+  version's (x1.5 + 1e-3, the bf16 gate of [kernel] and [kernel-bwd]); the
+  times of the kernel, the plain version and
+  F.scaled_dot_product_attention beside the bound at bf16's tensor-core
+  peak. Comparison launches only: not counted toward the main path."""
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  gen = torch.Generator(device="cuda").manual_seed(7)
+
+  def plain_bwd(q, k, v, dout):
+    return attn.dense_attention_backward(q, k, v,
+                                         attn.dense_attention(q, k, v), dout)
+
+  for b, n, c in BF16_SHAPES:
+    q, k, v, dout = (torch.randn(b, n, c, device="cuda", generator=gen)
+                     .bfloat16() for _ in range(4))
+    exact = attn.dense_attention(*(t.double() for t in (q, k, v)))
+    err = _max_err(attn.attention(q, k, v).double(), exact)
+    err_plain = _max_err(attn.dense_attention(q, k, v).double(), exact)
+    check(err <= 1.5 * err_plain + 1e-3,
+          f"[kernel-bf16] forward at {(b, n, c)}: kernel {err:.3g} vs plain "
+          f"{err_plain:.3g} from fp64")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    attn.attention(*leaves).backward(dout)
+    got = [t.grad for t in leaves]
+    wide = [t.double() for t in (q, k, v, dout)]
+    exact_g = plain_bwd(*wide)
+    err_b = max(_max_err(g.double(), e) for g, e in zip(got, exact_g))
+    err_b_plain = max(_max_err(g.double(), e) for g, e in
+                      zip(plain_bwd(q, k, v, dout), exact_g))
+    check(err_b <= 1.5 * err_b_plain + 1e-3,
+          f"[kernel-bf16] backward at {(b, n, c)}: kernel {err_b:.3g} vs "
+          f"plain {err_b_plain:.3g} from fp64")
+    del exact, exact_g, wide
+    q4, k4, v4 = (t[:, None] for t in (q, k, v))
+    ms = time_ms(torch, lambda: attn.attention(q, k, v))
+    plain_ms = time_ms(torch, lambda: attn.dense_attention(q, k, v))
+    library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4))
+    bound_ms, bound_by = bound(4.0 * b * n * n * c, 4.0 * b * n * c * 2,
+                               BF16_FLOPS)
+    out, lse = attn._launch_flash_attention(q, k, v, with_lse=True)
+    bwd_ms = time_ms(torch, lambda: attn._launch_flash_attention_backward(
+        q, k, v, out, lse, dout), iters=20)
+    plain_bwd_ms = time_ms(torch, lambda: attn.dense_attention_backward(
+        q, k, v, out, dout), iters=20)
+    bwd_bound_ms, bwd_bound_by = bound(10.0 * b * n * n * c,
+                                       8.0 * b * n * c * 2 + b * n * 4,
+                                       BF16_FLOPS)
+    grads = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    both_ms = time_ms(torch, lambda: torch.autograd.grad(
+        attn.attention(*grads), grads, dout), iters=20)
+    sdpa_both_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(*(t[:, None] for t in grads)), grads, dout[:, None]), iters=20)
+    say(f"[kernel-bf16] B,N,C={b},{n},{c}: vs fp64 forward kernel {err:.3g} "
+        f"plain {err_plain:.3g}, backward kernel {err_b:.3g} plain "
+        f"{err_b_plain:.3g}")
+    say(f"[kernel-bf16]   forward ms: kernel {ms:.4f} plain {plain_ms:.4f} "
+        f"sdpa {library_ms:.4f} bound {bound_ms:.4f} ({bound_by}), share of "
+        f"bound {bound_ms / ms:.3f} | backward ms: kernel {bwd_ms:.4f} plain "
+        f"{plain_bwd_ms:.4f} bound {bwd_bound_ms:.4f} ({bwd_bound_by}), "
+        f"share {bwd_bound_ms / bwd_ms:.3f} | forward+backward: kernels "
+        f"{both_ms:.4f} sdpa {sdpa_both_ms:.4f} ({card_line})")
+
+
+def _forward_card_vs_cpu(torch, config, model, labels, tag: str,
+                         batch: int, cpu_batch: int) -> float:
+  """The full-width forward on the card against the CPU forward of the same
+  weights (TF32 off), with no attention launch; returns the card's
+  output's max |value|."""
+  from score_sde_pytorch_tpu_torch.ops import attention as attn
+  gen = torch.Generator(device="cuda").manual_seed(1)
+  size = config.data.image_size
+  x = torch.rand(batch, 3, size, size, device="cuda", generator=gen)
+  before = attn.flash_attention_launches
+  with torch.no_grad():
+    out = model(x, labels)
+    torch.cuda.synchronize()
+    on_cpu = model.to("cpu")(x[:cpu_batch].cpu(), labels[:cpu_batch].cpu())
+  model.to("cuda")
+  launches = attn.flash_attention_launches - before
+  scale = on_cpu.abs().max().item()
+  rel = (out[:cpu_batch].cpu() - on_cpu).abs().max().item() / scale
+  say(f"{tag} full-width {config.model.name} B={batch}: max|out| "
+      f"{out.abs().max().item():.4g}, card vs CPU rel err {rel:.3g} "
+      f"({launches} attention launches)")
+  check(bool(torch.isfinite(out).all()), f"{tag} not finite")
+  check(launches == 0, f"{tag} {launches} attention launches, want 0")
+  check(rel <= FORWARD_RTOL, f"{tag} card vs CPU rel err {rel:.3g}")
+  return scale
+
+
+def _ncsn_labels(torch, config, batch: int):
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  return torch.randint(0, config.model.num_scales, (batch,), device="cuda",
+                       generator=gen)
+
+
+def phase_ncsn(torch, attn, card_line: str) -> None:
+  """[ncsn]: ve/ncsn/cifar10.py (NCSN v1, conditional InstanceNorm++, 10
+  scales, annealed Langevin dynamics with 100 steps per scale) at full
+  width: the forward on the card against the CPU (TF32 off); ``main --mode
+  train`` at the config's batch for 5 steps and a resume to 10; ``main
+  --mode sample`` at the config's 10 x 100 steps and batch 64; one sampler
+  step at the config's eval.batch_size, whose peak memory is held below a
+  forward's plus half of the stacked noise the corrector used to draw.
+  Every run counts its evaluations and holds the attention launches at
+  0."""
+  from score_sde_pytorch_tpu_torch import configs, datasets, sampling
+  from score_sde_pytorch_tpu_torch import sde as sde_lib
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(NCSN_CONFIG)
+  model = mutils.create_model(config, "cuda",
+                              torch.Generator().manual_seed(config.seed))
+  say(f"[ncsn] {NCSN_CONFIG[len(ROOT) + 1:]}: "
+      f"{sum(p.numel() for p in model.parameters())} parameters, "
+      f"{config.model.num_scales} scales, {config.sampling.corrector} x "
+      f"{config.sampling.n_steps_each}")
+  defaults = _tf32_off(torch)
+  try:
+    _forward_card_vs_cpu(torch, config, model,
+                         _ncsn_labels(torch, config, SMOKE_BATCH), "[ncsn]",
+                         SMOKE_BATCH, 2)
+  finally:
+    _tf32_restore(torch, defaults)
+  flags = {"training.n_iters": NCSN_TRAIN_STEPS, "training.log_freq": 5,
+           "training.eval_freq": 5, "training.snapshot_freq": 5,
+           "training.snapshot_freq_for_preemption": 5}
+  n_steps = config.sampling.n_steps_each
+  with tempfile.TemporaryDirectory() as workdir:
+    phase_train_run(torch, attn, NCSN_CONFIG, workdir, flags, 0,
+                    "[ncsn-train]", resume_to=2 * NCSN_TRAIN_STEPS,
+                    card_line=card_line)
+    # The "none" predictor evaluates nothing: num_scales x n_steps
+    # evaluations under a reported NFE of num_scales x (n_steps + 1).
+    phase_main_sample(torch, attn, NCSN_CONFIG, workdir, [], 0,
+                      config.model.num_scales * n_steps,
+                      NCSN_SAMPLE_BATCH, "[ncsn-sample]", card_line)
+  # One sampler step (num_scales 1: 100 Langevin steps and the "none"
+  # predictor) at the eval batch, after one forward at that batch alone.
+  batch = config.eval.batch_size
+  size = config.data.image_size
+  stacked_gib = n_steps * batch * 3 * size * size * 4 / 2 ** 30
+  x = torch.rand(batch, 3, size, size, device="cuda")
+  labels = torch.zeros(batch, dtype=torch.int32, device="cuda")
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  with torch.no_grad():
+    model(x, labels)
+  torch.cuda.synchronize()
+  forward_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+  del x
+  one = configs.load_config(NCSN_CONFIG, ["model.num_scales=1"])
+  shape = (batch, size, size, 3)
+  sampler = sampling.get_sampling_fn(one, sde_lib.build_sde(one), model,
+                                     shape,
+                                     datasets.get_data_inverse_scaler(one))
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  with network_evals(torch) as evals:
+    samples, nfe = sampler(torch.Generator(device="cuda").manual_seed(9))
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - start
+  step_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+  say(f"[ncsn-step] one sampler step at eval batch {batch}: {evals[0]} "
+      f"evaluations in {seconds:.2f} s ({seconds * 1e3 / evals[0]:.2f} "
+      f"ms each); peak max_memory_allocated above the model {step_gib:.3f} "
+      f"GiB, one forward alone {forward_gib:.3f} GiB; the stacked noise of "
+      f"{n_steps} steps would be {stacked_gib:.3f} GiB ({card_line})")
+  check(bool(torch.isfinite(samples).all()) and evals[0] == n_steps,
+        f"[ncsn-step] {evals[0]} evaluations, finite "
+        f"{bool(torch.isfinite(samples).all())}")
+  check(step_gib < forward_gib + stacked_gib / 2,
+        f"[ncsn-step] peak {step_gib:.3f} GiB: a stacked noise tensor?")
+
+
+def phase_ncsnv2(torch, attn, card_line: str) -> None:
+  """[ncsnv2]: ve/ncsnv2/cifar10.py (ncsnv2_64) at full width: the forward
+  on the card against the CPU (TF32 off), ``main --mode train`` for 5
+  steps and ``main --mode sample`` with annealed Langevin dynamics at 20
+  scales; ve/ncsnv2/bedroom.py (ncsnv2_128, 128²): the train step at its
+  batch of 128 or the largest of BEDROOM_BATCHES that fits, ms/step and
+  peak memory; an ncsnv2_256 forward at 256² and batch 4 (the bedroom file
+  with model.name=ncsnv2_256 and data.image_size=256) against the CPU.
+  No attention launch anywhere."""
+  import gc
+  from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(NCSNV2_CONFIG)
+  model = mutils.create_model(config, "cuda",
+                              torch.Generator().manual_seed(config.seed))
+  say(f"[ncsnv2] {NCSNV2_CONFIG[len(ROOT) + 1:]}: "
+      f"{sum(p.numel() for p in model.parameters())} parameters")
+  defaults = _tf32_off(torch)
+  try:
+    _forward_card_vs_cpu(torch, config, model,
+                         _ncsn_labels(torch, config, SMOKE_BATCH),
+                         "[ncsnv2]", SMOKE_BATCH, 2)
+  finally:
+    _tf32_restore(torch, defaults)
+  del model
+  flags = {"training.n_iters": NCSN_TRAIN_STEPS, "training.log_freq": 5,
+           "training.eval_freq": 5, "training.snapshot_freq": 5,
+           "training.snapshot_freq_for_preemption": 5}
+  with tempfile.TemporaryDirectory() as workdir:
+    phase_train_run(torch, attn, NCSNV2_CONFIG, workdir, flags, 0,
+                    "[ncsnv2-train]", card_line=card_line)
+    phase_main_sample(
+        torch, attn, NCSNV2_CONFIG, workdir,
+        [f"model.num_scales={NCSNV2_SCALES}"], 0,
+        NCSNV2_SCALES * config.sampling.n_steps_each,
+        NCSN_SAMPLE_BATCH, "[ncsnv2-sample]", card_line)
+  bedroom = configs.load_config(BEDROOM_CONFIG)
+  for b in BEDROOM_BATCHES:
+    try:
+      rec = train_step_peak(torch, attn, bedroom, b)
+    except torch.cuda.OutOfMemoryError:
+      rec = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rec is None:
+      say(f"[ncsnv2-bedroom] train step at batch {b}: out of device memory")
+      continue
+    say(f"[ncsnv2-bedroom] {BEDROOM_CONFIG[len(ROOT) + 1:]} (ncsnv2_128, "
+        f"128²) train step at batch {b} (the config's: "
+        f"{bedroom.training.batch_size}): {rec['ms']:.1f} ms/step, peak "
+        f"max_memory_allocated {rec['peak_gib']:.2f} GiB ({card_line})")
+    check(rec["launches"] == (0, 0),
+          f"[ncsnv2-bedroom] attention launches {rec['launches']}")
+    break
+  else:
+    check(False, f"[ncsnv2-bedroom] no batch of {BEDROOM_BATCHES} fits")
+  v256 = configs.load_config(BEDROOM_CONFIG, ["model.name=ncsnv2_256",
+                                              "data.image_size=256"])
+  model = mutils.create_model(v256, "cuda",
+                              torch.Generator().manual_seed(v256.seed))
+  say(f"[ncsnv2-256] ncsnv2_256 at 256²: "
+      f"{sum(p.numel() for p in model.parameters())} parameters")
+  defaults = _tf32_off(torch)
+  try:
+    _forward_card_vs_cpu(torch, v256, model,
+                         _ncsn_labels(torch, v256, V2_256_BATCH),
+                         "[ncsnv2-256]", V2_256_BATCH, 1)
+  finally:
+    _tf32_restore(torch, defaults)
+
+
+def phase_bf16_church(torch, attn, card_line: str) -> tuple:
+  """[bf16-church]: tpu/church_256_ncsnpp_tpu.py (model.dtype bfloat16,
+  remat, batch 32) at full width: ``main --mode train`` for 5 steps and a
+  resume to 10 (4 forward launches and 4 backward calls per step), then
+  ``main --mode sample`` (PC, num_scales 10, batch 4) on its checkpoint; the
+  train step's ms and peak memory at batch 32, beside the fp32 file's at
+  the same batch; and at unit gain, the bf16 forward's relative L2
+  distance from the fp32 forward of the same weights, with its 4
+  launches. Returns the forward and backward launches of the counted
+  runs."""
+  from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch.models import layers
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  config = configs.load_config(BF16_CHURCH_CONFIG)
+  flags = {"training.n_iters": HIRES_TRAIN_STEPS, "training.log_freq": 5,
+           "training.eval_freq": 5, "training.snapshot_freq": 5,
+           "training.snapshot_freq_for_preemption": 5}
+  with tempfile.TemporaryDirectory() as workdir:
+    train = phase_train_run(torch, attn, BF16_CHURCH_CONFIG, workdir, flags,
+                            BF16_CHURCH_ATTN, "[bf16-church-train]",
+                            resume_to=2 * HIRES_TRAIN_STEPS,
+                            card_line=card_line)
+    sample = phase_main_sample(
+        torch, attn, BF16_CHURCH_CONFIG, workdir,
+        [f"model.num_scales={HIRES_SCALES}"], BF16_CHURCH_ATTN,
+        (config.sampling.n_steps_each + 1) * HIRES_SCALES, HIRES_BATCH,
+        "[bf16-church-sample]", card_line)
+  batch = config.training.batch_size
+  for cfg, what in ((config, "bf16"), (configs.load_config(
+      BF16_CHURCH_CONFIG, ["model.dtype=float32"]), "fp32")):
+    rec = train_step_peak(torch, attn, cfg, batch)
+    say(f"[bf16-church] train step with remat at batch {batch}, {what}: "
+        f"{rec['ms']:.1f} ms/step, peak max_memory_allocated "
+        f"{rec['peak_gib']:.2f} GiB; {rec['launches'][0]:g} forward "
+        f"launches and {rec['launches'][1]:g} backward calls per step "
+        f"({card_line})")
+    check(rec["launches"] == (BF16_CHURCH_ATTN, BF16_CHURCH_ATTN),
+          f"[bf16-church] launches per step {rec['launches']}")
+  models = []
+  for cfg in (config, configs.load_config(BF16_CHURCH_CONFIG,
+                                          ["model.dtype=float32"])):
+    model = mutils.create_model(cfg, "cuda",
+                                torch.Generator().manual_seed(cfg.seed))
+    unit_gain_(torch, model, layers, seed=cfg.seed)
+    models.append(model)
+  gen = torch.Generator(device="cuda").manual_seed(1)
+  size = config.data.image_size
+  x = torch.rand(HIRES_BATCH, 3, size, size, device="cuda", generator=gen)
+  labels = _labels(config, torch.rand(HIRES_BATCH, device="cuda",
+                                      generator=gen))
+  with torch.no_grad():
+    attn.flash_attention_launches = 0
+    out16 = models[0](x, labels)
+    launches = attn.flash_attention_launches
+    out32 = models[1](x, labels)
+  dist = ((out16 - out32).norm() / out32.norm()).item()
+  say(f"[bf16-church] unit-gain forward at batch {HIRES_BATCH}: bf16 vs "
+      f"fp32 of the same weights, relative L2 {dist:.4g}; output dtype "
+      f"{out16.dtype}; {launches} attention launches")
+  check(out16.dtype == torch.float32 and bool(torch.isfinite(out16).all()),
+        f"[bf16-church] output {out16.dtype}")
+  check(1e-4 < dist <= 5e-2, f"[bf16-church] bf16 vs fp32 distance {dist}")
+  check(launches == BF16_CHURCH_ATTN,
+        f"[bf16-church] {launches} launches in one forward")
+  return train[0] + sample, train[1]
+
+
+def phase_bf16_1024(torch, attn, card_line: str) -> tuple:
+  """[bf16-1024]: tpu/celebahq_1024_ncsnpp_tpu.py (bf16, remat) at full
+  width, the train step at its batch of 8, driven directly as
+  [hires-1024]'s is: ms/step and peak memory, 3 forward launches and 3
+  backward calls per step. Returns the launches of the timed steps."""
+  from score_sde_pytorch_tpu_torch import configs
+  config = configs.load_config(BF16_1024_CONFIG)
+  steps = 2
+  rec = train_step_peak(torch, attn, config, config.training.batch_size,
+                        steps=steps)
+  say(f"[bf16-1024] {BF16_1024_CONFIG[len(ROOT) + 1:]} train step with "
+      f"remat at batch {config.training.batch_size}, bf16: {rec['ms']:.1f} "
+      f"ms/step, peak max_memory_allocated {rec['peak_gib']:.2f} GiB; "
+      f"{rec['launches'][0]:g} forward launches and {rec['launches'][1]:g} "
+      f"backward calls per step ({card_line})")
+  check(rec["launches"] == (BF16_1024_ATTN, BF16_1024_ATTN),
+        f"[bf16-1024] launches per step {rec['launches']}")
+  return (BF16_1024_ATTN * steps, BF16_1024_ATTN * steps)
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1829,6 +2208,7 @@ def main() -> int:
                                     "[kernel-bwd-512]")
   for rec, wide in ((record, record_512), (record_bwd, record_bwd_512)):
     rec["max_abs_err"] = max(rec["max_abs_err"], wide["max_abs_err"])
+  phase_kernel_bf16(torch, attn, card_line)
   record_act, record_act_bwd = phase_fused_act(torch, act)
 
   config = configs.load_config(
@@ -1887,6 +2267,10 @@ def main() -> int:
   ddpm256 = phase_ddpm256(torch, attn, card_line)
   hires = phase_hires(torch, attn, card_line)
   hires_1024 = phase_hires_1024(torch, attn, card_line)
+  phase_ncsn(torch, attn, card_line)
+  phase_ncsnv2(torch, attn, card_line)
+  bf16_church = phase_bf16_church(torch, attn, card_line)
+  bf16_1024 = phase_bf16_1024(torch, attn, card_line)
   # The card's machine has jax installed, so an import of it would not fail;
   # nor would one of the JAX package, which sits beside the port.
   leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -1898,10 +2282,11 @@ def main() -> int:
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
        launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
        + vp_eval[0] + ddpm_sample + samplers + ddpm256[0] + hires[0]
-       + hires_1024[0], record),
+       + hires_1024[0] + bf16_church[0] + bf16_1024[0], record),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
        train_bwd + eval_bwd + vp_train[1] + vp_eval[1] + ddpm256[1]
-       + hires[1] + hires_1024[1], record_bwd),
+       + hires[1] + hires_1024[1] + bf16_church[1] + bf16_1024[1],
+       record_bwd),
       # On no model's path: the sample, train and eval runs launch it 0
       # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],

@@ -16,9 +16,11 @@ port's copy at ``<rel>``, so the JAX package's command lines keep working;
 no file of the JAX package is ever run.
 
 Keys with no PyTorch meaning: ``training.prng_impl`` and
-``model.spatial_sharding`` are ignored. ``model.dtype`` other than float32
-raises; ``model.remat`` and ``model.remat_min_res`` are honoured by NCSN++
-(``models/ncsnpp.py``).
+``model.spatial_sharding`` (a no-op on one device, as on one TPU chip) are
+ignored. ``model.dtype`` is 'float32' or 'bfloat16' (the computation dtype
+of NCSN++ and the RefineNet family; the DDPM U-Net ignores it, as in the
+JAX package) and anything else raises; ``model.remat`` is honoured by
+NCSN++ and the RefineNet family, ``model.remat_min_res`` by NCSN++.
 """
 from __future__ import annotations
 
@@ -124,12 +126,12 @@ def apply_overrides(config, overrides: Iterable[str]) -> None:
 
 
 def check_supported(config) -> None:
-  """Raise on settings the port cannot honour yet."""
+  """Raise on settings the port cannot honour: ``model.dtype`` other than
+  'float32' or 'bfloat16'."""
   dtype = config.model.get("dtype", "float32")
-  if dtype != "float32":
-    raise NotImplementedError(f"model.dtype={dtype!r} is not ported yet; the "
-                              "port computes in float32 (bf16 autocast is an "
-                              "open question in PERF.md)")
+  if dtype not in ("float32", "bfloat16"):
+    raise NotImplementedError(f"model.dtype={dtype!r} is not supported; the "
+                              "port computes in 'float32' or 'bfloat16'")
 
 
 def resolve(path: str) -> Path:

@@ -10,9 +10,10 @@ as in the JAX package (JAX controllable_generation.py:63-69, 139-145).
 
 The samplers draw their noise through :func:`sampling.normal` in the JAX
 package's order (its five-way key split per step, JAX :78, :155): the prior
-first, then per step the corrector's noise, its projection's, the
-predictor's and its projection's, so tests can inject the noise the JAX
-package sees. Images are NHWC at the entry points, as in the JAX package;
+first, then per step the corrector's noise (one draw per Langevin step,
+when that step runs; none for the ``none`` corrector), its projection's,
+the predictor's and its projection's, so tests can inject the noise the
+JAX package sees. Images are NHWC at the entry points, as in the JAX package;
 states are NCHW. There is no ``mesh`` argument: one device per call.
 """
 from __future__ import annotations
@@ -47,8 +48,8 @@ def _projected_pc(sde, model, predictor, corrector, snr, n_steps,
   timesteps = sde_lib.linspace(sde.T, eps, sde.N, device)
   for i in range(sde.N):
     t = timesteps[i].expand(shape[0])
-    zs = sampling.normal((n_steps,) + shape, generator, device)
-    x, x_mean = corrector_update(x, t, zs)
+    x, x_mean = corrector_update(
+        x, t, sampling.step_noise(shape, generator, device))
     x, x_mean = project(x, t, sampling.normal(shape, generator, device))
     x, x_mean = predictor_update(x, t, sampling.normal(shape, generator,
                                                        device))

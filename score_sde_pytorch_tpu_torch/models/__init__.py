@@ -1,2 +1,3 @@
 """Score networks of the port. Importing the package registers them."""
-from score_sde_pytorch_tpu_torch.models import ddpm, ncsnpp  # noqa: F401
+from score_sde_pytorch_tpu_torch.models import (  # noqa: F401
+    ddpm, ncsnpp, ncsnv2)

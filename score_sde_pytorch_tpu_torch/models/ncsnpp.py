@@ -7,14 +7,23 @@ so that ``score_sde_pytorch_tpu.interop.flax_params_to_torch_state_dict``
 and the reference's ``.pth`` files load with ``strict=True``. Comments name
 each module's flax counterpart.
 
-Ported branches: Fourier and positional noise embeddings, BigGAN resblocks
-with FIR or naive resampling (``fir``), ``progressive`` 'none' or
-'output_skip' (the output pyramid), ``progressive_input`` 'none',
-'input_skip' (with ``progressive_combine`` 'sum' or 'cat') or 'residual',
-``scale_by_sigma``, the ``2x - 1`` input scaling of uncentered data, and
-``model.remat``: every shipped NCSN++ and DDPM++ config. The rest
-(``progressive='residual'``, ``resblock_type='ddpm'``, ``conditional=False``)
-raises NotImplementedError.
+Every branch of the JAX model: Fourier and positional noise embeddings,
+``conditional`` or not (an unconditional model has no ``Dense_t0``/``t1``
+and adds no time embedding; its resblocks keep their unused ``Dense_0``, as
+in the reference), BigGAN resblocks with FIR or naive resampling (``fir``)
+or DDPM resblocks with separate Up/Downsample modules, ``progressive``
+'none', 'output_skip' or 'residual' (the output pyramid),
+``progressive_input`` 'none', 'input_skip' (with ``progressive_combine``
+'sum' or 'cat') or 'residual', ``scale_by_sigma``, the ``2x - 1`` input
+scaling of uncentered data, ``model.dtype`` and ``model.remat``.
+
+``model.dtype='bfloat16'`` computes the trunk in bf16, cast for cast as
+the JAX package does (JAX ncsnpp.py:61-64): ``conv_in``, the resblocks, the
+attention blocks (whose bf16 q, k and v go to the kernel's bf16 path on
+the card), the combiners and the pyramids' fused convs compute in bf16;
+the time embedding, ``pyramid_conv``, ``conv_out`` and every norm's
+statistics stay fp32, and the output is cast to fp32 before the division
+by sigma. Parameters stay fp32.
 
 ``model.remat`` recomputes the resblocks whose input is at least
 ``model.remat_min_res`` pixels high (0: every resblock) in the backward
@@ -37,26 +46,22 @@ from score_sde_pytorch_tpu_torch.models import layers, layerspp, utils
 
 _SQRT2 = math.sqrt(2.0)
 
-# The values of these settings that are ported; any other raises.
-_PORTED = {
+# The values these settings take (JAX ncsnpp.py:74-76,101-115).
+_CHOICES = {
     "embedding_type": ("fourier", "positional"),
-    "resblock_type": ("biggan",),
-    "progressive": ("none", "output_skip"),
+    "resblock_type": ("ddpm", "biggan"),
+    "progressive": ("none", "output_skip", "residual"),
     "progressive_input": ("none", "input_skip", "residual"),
 }
 
 
-def _check_ported(config) -> None:
+def _check_config(config) -> None:
   m = config.model
-  for key, ported in _PORTED.items():
+  for key, choices in _CHOICES.items():
     got = str(m[key]).lower()
-    if got not in ported:
-      raise NotImplementedError(
-          f"NCSNpp model.{key}={got!r} is not ported yet (only "
-          f"{', '.join(map(repr, ported))}); see ROADMAP.md queue 1 item 2")
-  if not m.conditional:
-    raise NotImplementedError("NCSNpp with conditional=False is not ported "
-                              "yet; see ROADMAP.md queue 1 item 2")
+    if got not in choices:
+      raise ValueError(f"NCSNpp model.{key}={got!r} unknown (one of "
+                       f"{', '.join(map(repr, choices))})")
   if m.embedding_type.lower() == "fourier" and not config.training.continuous:
     raise ValueError("Fourier features are only used for continuous training.")
 
@@ -67,7 +72,7 @@ class NCSNpp(nn.Module):
 
   def __init__(self, config, *, generator: torch.Generator):
     super().__init__()
-    _check_ported(config)
+    _check_config(config)
     m = config.model
     self.act = act = layers.get_act(m.nonlinearity)
     # Registered first, as in the reference: `sigmas` is the first state_dict
@@ -88,33 +93,46 @@ class NCSNpp(nn.Module):
     self.nf = nf
     self.progressive = m.progressive.lower()
     self.progressive_input = m.progressive_input.lower()
+    self.resblock_type = m.resblock_type.lower()
+    self.conditional = m.conditional
     self.remat = bool(m.get("remat", False))
     self.remat_min_res = int(m.get("remat_min_res", 0))
     fir, fir_kernel = m.fir, tuple(m.fir_kernel)
     init_scale = m.init_scale
     channels = config.data.num_channels
+    dtype = utils.compute_dtype(config)
     g = generator
 
     def resblock(in_ch, out_ch=None, up=False, down=False):
+      if self.resblock_type == "ddpm":
+        return layerspp.ResnetBlockDDPMpp(
+            act, in_ch, out_ch, nf * 4, generator=g, dropout=m.dropout,
+            skip_rescale=skip_rescale, init_scale=init_scale, dtype=dtype)
       return layerspp.ResnetBlockBigGANpp(
           act, in_ch, out_ch, nf * 4, generator=g, up=up, down=down,
           dropout=m.dropout, fir=fir, fir_kernel=fir_kernel,
-          skip_rescale=skip_rescale, init_scale=init_scale)
+          skip_rescale=skip_rescale, init_scale=init_scale, dtype=dtype)
 
     def attn(ch):
       return layerspp.AttnBlockpp(ch, generator=g, skip_rescale=skip_rescale,
-                                  init_scale=init_scale)
+                                  init_scale=init_scale, dtype=dtype)
+
+    def resample(cls, ch):
+      return cls(ch, generator=g, with_conv=m.resamp_with_conv, fir=fir,
+                 fir_kernel=fir_kernel, dtype=dtype)
 
     modules = []
     if self.embedding_type == "fourier":
       modules.append(layerspp.GaussianFourierProjection(  # FourierProj
           nf, m.fourier_scale, generator=g))
     embed_dim = nf * 2 if self.embedding_type == "fourier" else nf
-    modules += [
-        layers.dense(embed_dim, nf * 4, generator=g),       # Dense_t0
-        layers.dense(nf * 4, nf * 4, generator=g),          # Dense_t1
-        layers.ddpm_conv3x3(channels, nf, generator=g),     # conv_in
-    ]
+    if self.conditional:
+      modules += [
+          layers.dense(embed_dim, nf * 4, generator=g),     # Dense_t0
+          layers.dense(nf * 4, nf * 4, generator=g),        # Dense_t1
+      ]
+    modules.append(layers.ddpm_conv3x3(channels, nf, generator=g,
+                                       dtype=dtype))       # conv_in
     hs_c = [nf]
     in_ch = nf
     input_pyramid_ch = channels
@@ -127,17 +145,20 @@ class NCSNpp(nn.Module):
           modules.append(attn(in_ch))                # down_{i}_attn_{j}
         hs_c.append(in_ch)
       if i_level != num_resolutions - 1:
-        modules.append(resblock(in_ch, down=True))   # down_{i}_downsample
+        if self.resblock_type == "ddpm":             # down_{i}_downsample
+          modules.append(resample(layerspp.Downsample, in_ch))
+        else:
+          modules.append(resblock(in_ch, down=True))
         if self.progressive_input == "input_skip":
           modules.append(layerspp.Combine(           # combine_{i}
               input_pyramid_ch, in_ch, m.progressive_combine.lower(),
-              generator=g))
+              generator=g, dtype=dtype))
           if m.progressive_combine.lower() == "cat":
             in_ch *= 2
         elif self.progressive_input == "residual":
           modules.append(layerspp.Downsample(        # pyramid_downsample_{i}
               input_pyramid_ch, in_ch, generator=g, with_conv=True, fir=fir,
-              fir_kernel=fir_kernel))
+              fir_kernel=fir_kernel, dtype=dtype))
           input_pyramid_ch = in_ch
         hs_c.append(in_ch)
 
@@ -145,6 +166,7 @@ class NCSNpp(nn.Module):
     modules.append(attn(in_ch))                      # mid_attn
     modules.append(resblock(in_ch))                  # mid_block_1
 
+    pyramid_ch = None
     for i_level in reversed(range(num_resolutions)):
       for _ in range(num_res_blocks + 1):
         out_ch = nf * ch_mult[i_level]
@@ -157,8 +179,22 @@ class NCSNpp(nn.Module):
                                         eps=1e-6))   # pyramid_norm_{i}
         modules.append(layers.ddpm_conv3x3(          # pyramid_conv_{i}
             in_ch, channels, generator=g, init_scale=init_scale))
+      elif self.progressive == "residual":
+        if pyramid_ch is None:
+          modules.append(layers.GroupNorm(min(in_ch // 4, 32), in_ch,
+                                          eps=1e-6))  # pyramid_norm_{i}
+          modules.append(layers.ddpm_conv3x3(        # pyramid_conv_{i}
+              in_ch, in_ch, generator=g))
+        else:
+          modules.append(layerspp.Upsample(          # pyramid_upsample_{i}
+              pyramid_ch, in_ch, generator=g, with_conv=True, fir=fir,
+              fir_kernel=fir_kernel, dtype=dtype))
+        pyramid_ch = in_ch
       if i_level != 0:
-        modules.append(resblock(in_ch, up=True))     # up_{i}_upsample
+        if self.resblock_type == "ddpm":             # up_{i}_upsample
+          modules.append(resample(layerspp.Upsample, in_ch))
+        else:
+          modules.append(resblock(in_ch, up=True))
     assert not hs_c
 
     if self.progressive != "output_skip":
@@ -196,8 +232,11 @@ class NCSNpp(nn.Module):
       temb = next(modules)(torch.log(time_cond))     # FourierProj
     else:
       temb = layers.get_timestep_embedding(time_cond, self.nf)
-    temb = next(modules)(temb)                       # Dense_t0
-    temb = next(modules)(act(temb))                  # Dense_t1
+    if self.conditional:
+      temb = next(modules)(temb)                     # Dense_t0
+      temb = next(modules)(act(temb))                # Dense_t1
+    else:
+      temb = None
 
     if not self.centered:
       x = 2 * x - 1.0                                # [0, 1] -> [-1, 1]
@@ -212,14 +251,18 @@ class NCSNpp(nn.Module):
           h = next(modules)(h)                       # down_{i}_attn_{j}
         hs.append(h)
       if i_level != self.num_resolutions - 1:
-        h = block(next(modules), hs[-1], temb)       # down_{i}_downsample
+        if self.resblock_type == "ddpm":
+          h = next(modules)(hs[-1])                  # down_{i}_downsample
+        else:
+          h = block(next(modules), hs[-1], temb)     # down_{i}_downsample
         if self.progressive_input == "input_skip":
           input_pyramid = self.pyramid_downsample(input_pyramid)
           h = next(modules)(input_pyramid, h)        # combine_{i}
         elif self.progressive_input == "residual":
-          input_pyramid = next(modules)(input_pyramid)  # pyramid_downsample_{i}
-          if self.skip_rescale:
-            input_pyramid = (input_pyramid + h) / _SQRT2
+          input_pyramid = next(modules)(             # pyramid_downsample_{i}
+              input_pyramid).to(h.dtype)
+          if self.skip_rescale:  # np.sqrt(2.0) in JAX: an fp32 result
+            input_pyramid = (input_pyramid + h).float() / _SQRT2
           else:
             input_pyramid = input_pyramid + h
           h = input_pyramid
@@ -244,8 +287,22 @@ class NCSNpp(nn.Module):
           pyramid = pyramid_h
         else:
           pyramid = self.pyramid_upsample(pyramid) + pyramid_h
+      elif self.progressive == "residual":
+        if pyramid is None:
+          pyramid = act(next(modules)(h))            # pyramid_norm_{i}
+          pyramid = next(modules)(pyramid)           # pyramid_conv_{i}
+        else:
+          pyramid = next(modules)(pyramid).to(h.dtype)  # pyramid_upsample_{i}
+          if self.skip_rescale:  # np.sqrt(2.0) in JAX: an fp32 result
+            pyramid = (pyramid + h).float() / _SQRT2
+          else:
+            pyramid = pyramid + h
+          h = pyramid
       if i_level != 0:
-        h = block(next(modules), h, temb)            # up_{i}_upsample
+        if self.resblock_type == "ddpm":
+          h = next(modules)(h)                       # up_{i}_upsample
+        else:
+          h = block(next(modules), h, temb)          # up_{i}_upsample
     assert not hs
 
     if self.progressive == "output_skip":

@@ -32,9 +32,16 @@ def register_model(cls=None, *, name: Optional[str] = None):
 def get_model(name: str):
   if name not in _MODELS:
     raise NotImplementedError(
-        f"model {name!r} is not ported yet (ported: {sorted(_MODELS)}); see "
-        "ROADMAP.md queue 1 item 11")
+        f"no model named {name!r} (registered: {sorted(_MODELS)})")
   return _MODELS[name]
+
+
+def compute_dtype(config) -> Optional[torch.dtype]:
+  """The networks' computation dtype from ``config.model.dtype``:
+  ``torch.bfloat16`` for 'bfloat16', None (fp32 throughout) for
+  'float32'."""
+  return (torch.bfloat16 if config.model.get("dtype", "float32") == "bfloat16"
+          else None)
 
 
 def get_sigmas(config) -> np.ndarray:

@@ -42,9 +42,12 @@ _MAX_C = 512  # the widest attention of any shipped config (16 x 32, 128 x 4)
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-  """Plain version: materialized [B, N, N] logits (JAX attention.py:37-42)."""
+  """Plain version: materialized [B, N, N] logits (JAX attention.py:37-42).
+  The scale 1/√C multiplies the logits in their dtype, rounded to it first
+  (JAX's weakly typed scalar)."""
   c = q.shape[-1]
-  logits = torch.einsum("bnc,bmc->bnm", q, k) * (c ** -0.5)
+  scale = torch.tensor(c ** -0.5, dtype=q.dtype).item()
+  logits = torch.einsum("bnc,bmc->bnm", q, k) * scale
   attn = torch.softmax(logits.float(), dim=-1)
   return torch.einsum("bnm,bmc->bnc", attn.to(v.dtype), v)
 

@@ -130,3 +130,22 @@ def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
   n, c, h, w = x.shape
   x = x.reshape(n, c, h // factor, factor, w // factor, factor)
   return x.mean(dim=(3, 5))
+
+
+def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k: KernelLike = None,
+                     factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+  """Transposed conv with stride ``factor``, then FIR filtering
+  (reference up_or_down_sampling.py:72-141; JAX upfirdn2d.py:152-181).
+
+  ``w`` is OIHW ``[outC, inC, convH, convW]``; ``conv_transpose2d`` takes it
+  as ``[inC, outC, ...]`` and convolves the zero-inserted input with the
+  flipped kernel, as the JAX package's dilated conv does."""
+  _, _, convh, convw = w.shape
+  if convh != convw:
+    raise ValueError(f"conv kernel must be square, got {convh}x{convw}")
+  k = setup_kernel([1.0] * factor if k is None else k)
+  p = (k.shape[0] - factor) - (convw - 1)
+  y = F.conv_transpose2d(x, w.transpose(0, 1).to(x.dtype), stride=factor)
+  scale = gain * (factor ** 2)
+  k = k * (scale if k.ndim == 2 else np.sqrt(scale))
+  return upfirdn2d(y, k, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))

@@ -3,7 +3,7 @@ checkpoint.
 
 Counterpart of score_sde_pytorch_tpu/run_lib.py:66-248 (``train``),
 :251-464 (``evaluate``) and :467-588 (``sample``). One process; the JAX
-package's multi-host paths are ROADMAP.md queue 1 item 13.
+package's multi-host paths are ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 

@@ -2,11 +2,15 @@
 DPM-Solver++(2M).
 
 Counterpart of score_sde_pytorch_tpu/sampling.py. Update functions take
-their Gaussian noise as an argument (``update_fn(x, t, z)``); the samplers
-draw it from an explicit ``torch.Generator`` through :func:`normal`, so
-tests can inject the noise the JAX package sees. Loops are Python loops of
-eager steps (the JAX package scans them inside one jit). States are NCHW;
-the samplers take and return NHWC, as the JAX package does.
+their Gaussian noise as an argument: a predictor's ``update_fn(x, t, z)``
+takes a tensor, a corrector's ``update_fn(x, t, noise)`` a callable
+``noise(step)`` that it calls once per Langevin step, when that step runs,
+so no more than one step's noise is ever held (the JAX package draws it
+inside its scan). The samplers draw from an explicit ``torch.Generator``
+through :func:`normal`, so tests can inject the noise the JAX package
+sees. Loops are Python loops of eager steps (the JAX package scans them
+inside one jit). States are NCHW; the samplers take and return NHWC, as
+the JAX package does.
 """
 from __future__ import annotations
 
@@ -165,15 +169,15 @@ def _check_corrector_sde(sde):
 def langevin_corrector(sde, score_fn, snr, n_steps):
   """Langevin steps of size 2·alpha·(snr·‖z‖/‖score‖)² (JAX
   sampling.py:164-191). The norms are per sample, then averaged over the
-  batch, as in the reference. ``update_fn(x, t, zs)`` takes ``n_steps``
-  noise tensors stacked on a leading axis."""
+  batch, as in the reference. ``update_fn(x, t, noise)`` calls
+  ``noise(step)`` for each step's noise, of ``x``'s shape."""
   _check_corrector_sde(sde)
 
-  def update_fn(x, t, zs):
+  def update_fn(x, t, noise):
     alpha = _corrector_alpha(sde, t)
     x_mean = x
     for step in range(n_steps):
-      z = zs[step]
+      z = noise(step)
       grad = score_fn(x, t)
       grad_norm = torch.linalg.norm(grad.reshape(grad.shape[0], -1),
                                     dim=-1).mean()
@@ -189,11 +193,11 @@ def langevin_corrector(sde, score_fn, snr, n_steps):
 @register_corrector(name="ald")
 def annealed_langevin_dynamics(sde, score_fn, snr, n_steps):
   """The original NCSN annealed Langevin dynamics: steps of size
-  2·alpha·(snr·std(t))² (JAX sampling.py:194-219). ``update_fn(x, t, zs)``
-  as :func:`langevin_corrector`'s."""
+  2·alpha·(snr·std(t))² (JAX sampling.py:194-219). ``update_fn(x, t,
+  noise)`` as :func:`langevin_corrector`'s."""
   _check_corrector_sde(sde)
 
-  def update_fn(x, t, zs):
+  def update_fn(x, t, noise):
     alpha = _corrector_alpha(sde, t)
     std = sde.marginal_prob(x, t)[1]
     step_size = (snr * std) ** 2 * 2 * alpha
@@ -201,7 +205,7 @@ def annealed_langevin_dynamics(sde, score_fn, snr, n_steps):
     for step in range(n_steps):
       grad = score_fn(x, t)
       x_mean = x + batch_mul(step_size, grad)
-      x = x_mean + batch_mul(torch.sqrt(step_size * 2), zs[step])
+      x = x_mean + batch_mul(torch.sqrt(step_size * 2), noise(step))
     return x, x_mean
 
   return update_fn
@@ -210,10 +214,16 @@ def annealed_langevin_dynamics(sde, score_fn, snr, n_steps):
 @register_corrector(name="none")
 def none_corrector(sde, score_fn, snr, n_steps):
 
-  def update_fn(x, t, zs):
+  def update_fn(x, t, noise):
     return x, x
 
   return update_fn
+
+
+def step_noise(state_shape, generator: torch.Generator, device) -> Callable:
+  """A corrector's ``noise(step)``: each call draws one step's noise of
+  ``state_shape`` through :func:`normal`."""
+  return lambda step: normal(state_shape, generator, device)
 
 
 def get_pc_sampler(sde, model, shape, predictor, corrector,
@@ -244,8 +254,8 @@ def get_pc_sampler(sde, model, shape, predictor, corrector,
       timesteps = sde_lib.linspace(sde.T, eps, sde.N, device)
       for i in range(sde.N):
         t = timesteps[i].expand(b)
-        zs = normal((n_steps,) + state_shape, generator, device)
-        x, x_mean = corrector_update(x, t, zs)
+        x, x_mean = corrector_update(
+            x, t, step_noise(state_shape, generator, device))
         z = normal(state_shape, generator, device)
         x, x_mean = predictor_update(x, t, z)
       out = inverse_scaler(x_mean if denoise else x)

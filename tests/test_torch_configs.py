@@ -1,13 +1,14 @@
 """Every config file the port runs, built at full width on the CPU.
 
-Each of the 31 runnable leaf configs builds its model; its state_dict keys
-and shapes equal the JAX package's parameter map of the flax model's
-(abstract) parameters, so ``flax_params_to_torch_state_dict`` loads the
+Each of the 44 leaf configs builds its model; its state_dict keys and
+shapes equal the JAX package's parameter map of the flax model's
+(abstract) parameters (the port's own map for NCSN v1, which the JAX
+package has none of), so ``flax_params_to_torch_state_dict`` loads the
 JAX package's weights with ``strict=True``; and a batch-1 forward on the
 ``meta`` device (shapes only) records every attention call it makes, each
-held to the kernel's contract (``ops.attention.check_inputs``). The other
-13 leaves (NCSN, NCSNv2 and the two bf16 files) raise naming ROADMAP.md.
-One real full-width forward runs the 256² DDPM, whose attention is 512
+held to the kernel's contract (``ops.attention.check_inputs``): none in
+the NCSN and NCSNv2 RefineNets, bf16 q, k, v in the two bf16 files. One
+real full-width forward runs the 256² DDPM, whose attention is 512
 channels wide.
 """
 from unittest import mock
@@ -21,7 +22,7 @@ import torch
 from score_sde_pytorch_tpu import interop as jax_interop
 from score_sde_pytorch_tpu.models import utils as jax_mutils
 import score_sde_pytorch_tpu.models  # noqa: F401  (registers the JAX models)
-from score_sde_pytorch_tpu_torch import configs
+from score_sde_pytorch_tpu_torch import configs, interop
 from score_sde_pytorch_tpu_torch.models import layers
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.ops import attention
@@ -32,12 +33,16 @@ NOT_LEAVES = {"__init__.py", "builder.py", "default_cifar10_configs.py",
 LEAVES = sorted(str(p.relative_to(configs.CONFIG_DIR))
                 for p in configs.CONFIG_DIR.rglob("*.py")
                 if p.name not in NOT_LEAVES)
-UNPORTED = [rel for rel in LEAVES if rel.startswith(("ve/ncsn/", "ve/ncsnv2/"))
-            ] + ["tpu/celebahq_1024_ncsnpp_tpu.py", "tpu/church_256_ncsnpp_tpu.py"]
-RUNNABLE = [rel for rel in LEAVES if rel not in UNPORTED]
+RUNNABLE = LEAVES
+REFINENET = [rel for rel in LEAVES if rel.startswith(("ve/ncsn/",
+                                                      "ve/ncsnv2/"))]
+BF16 = ["tpu/celebahq_1024_ncsnpp_tpu.py", "tpu/church_256_ncsnpp_tpu.py"]
 # The attention calls of one forward, as [N, C], of the configs that
 # chip_smoke.py drives at 256² and 1024².
 ATTENTION = {
+    "tpu/church_256_ncsnpp_tpu.py": [(256, 256)] * 2 + [(16, 256),
+                                                        (256, 256)],
+    "tpu/celebahq_1024_ncsnpp_tpu.py": [(256, 512), (64, 512), (256, 512)],
     "ve/church_ncsnpp_continuous.py": [(256, 256)] * 2 + [(16, 256),
                                                           (256, 256)],
     "tpu/church_ncsnpp_continuous_multiattn.py":
@@ -49,14 +54,12 @@ ATTENTION = {
 
 
 def test_the_runnable_configs_are_the_readmes_31():
-  assert len(LEAVES) == 44 and len(RUNNABLE) == 31 and len(UNPORTED) == 13
-
-
-@pytest.mark.parametrize("rel", UNPORTED)
-def test_unported_configs_raise_naming_roadmap(rel):
-  with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
-    cfg = configs.load_config(str(configs.CONFIG_DIR / rel))
-    mutils.get_model(cfg.model.name)
+  """All 44 leaf files run: the README's 31, the 11 NCSN and NCSNv2 files
+  and the two bf16 files."""
+  assert len(LEAVES) == len(RUNNABLE) == 44
+  assert len(REFINENET) == 11
+  assert all(configs.load_config(str(configs.CONFIG_DIR / rel)).model.dtype
+             == "bfloat16" for rel in BF16)
 
 
 _JAX_SHAPES = {}
@@ -66,11 +69,13 @@ def jax_state_shapes(cfg):
   """The port-layout shapes of the flax model's parameters (no JAX init
   runs: ``jax.eval_shape``), cached per architecture."""
   m = cfg.model
+  # NCSN v1's conditional norms have a row per noise scale.
+  shapeless = ("sigma_min", "sigma_max", "beta_min", "beta_max", "ema_rate",
+               "dropout", "remat", "remat_min_res") + (
+                   () if m.name == "ncsn" else ("num_scales",))
   key = repr(sorted((k, repr(v)) for k, v in (
       m.to_dict() if hasattr(m, "to_dict") else m._fields).items()
-      if k not in ("sigma_min", "sigma_max", "num_scales", "beta_min",
-                   "beta_max", "ema_rate", "dropout", "remat",
-                   "remat_min_res"))) + repr((cfg.data.image_size,
+      if k not in shapeless)) + repr((cfg.data.image_size,
                                               cfg.data.num_channels,
                                               cfg.training.continuous))
   if key not in _JAX_SHAPES:
@@ -83,20 +88,21 @@ def jax_state_shapes(cfg):
                                train=False))["params"]
     zeros = jax.tree_util.tree_map(
         lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape), abstract)
-    _JAX_SHAPES[key] = [
-        (k, tuple(v.shape)) for k, v in
-        jax_interop.flax_params_to_torch_state_dict(zeros, cfg).items()]
+    to_state = (interop if m.name == "ncsn" else jax_interop
+                ).flax_params_to_torch_state_dict
+    _JAX_SHAPES[key] = [(k, tuple(v.shape))
+                        for k, v in to_state(zeros, cfg).items()]
   return _JAX_SHAPES[key]
 
 
 def attention_calls(model, cfg):
-  """The [B, N, C] shapes of the attention calls of one batch-1 forward on
+  """The (dtype, B, N, C) of the attention calls of one batch-1 forward on
   the meta device, each checked against the kernel's contract."""
   calls = []
 
   def record(q, k, v):
     attention.check_inputs(q, k, v)
-    calls.append(tuple(q.shape))
+    calls.append((q.dtype,) + tuple(q.shape))
     return torch.empty_like(q)
 
   size = cfg.data.image_size
@@ -116,9 +122,12 @@ def test_config_builds_at_full_width(rel):
   assert got == jax_state_shapes(cfg)
   calls = attention_calls(model, cfg)
   blocks = sum(isinstance(m, layers.AttnBlock) for m in model.modules())
-  assert len(calls) == blocks > 0
+  assert len(calls) == blocks
+  assert (blocks == 0) == (rel in REFINENET)
+  dtype = torch.bfloat16 if rel in BF16 else torch.float32
+  assert {d for d, *_ in calls} <= {dtype}
   if rel in ATTENTION:
-    assert [(n, c) for _, n, c in calls] == ATTENTION[rel]
+    assert [(n, c) for _, _, n, c in calls] == ATTENTION[rel]
 
 
 def test_full_width_256_ddpm_forward_on_cpu():

@@ -93,7 +93,8 @@ def _draw_keys(key, corrector, predictor):
   """The keys the JAX samplers draw noise from, in their order: the prior,
   then per step the corrector's (Langevin splits its key n_steps = 1 ways),
   the projection's, the predictor's and the projection's. None marks a
-  draw the port makes and the JAX package does not (no corrector)."""
+  draw the JAX package does not make: the port makes none for a missing
+  corrector either, and draws a missing predictor's noise all the same."""
   key, prior = jax.random.split(key)
   keys = [prior]
   for _ in range(N):
@@ -142,12 +143,14 @@ def test_sampler_matches_jax_with_injected_noise(kind, task, monkeypatch):
   want = np.asarray(sampler_j(jax.random.PRNGKey(2), params, *args))
   monkeypatch.undo()
 
-  # The port: the same arrays in its draw order (a stacked corrector draw).
+  # The port: the same arrays in its draw order (one draw per corrector
+  # step, as it runs).
   queue = []
   for i, key in enumerate(keys[1:]):
-    z = nchw(table[i + 1]) if key is not None else torch.zeros(
-        BATCH, 3, size, size)
-    queue.append(z[None] if i % 4 == 0 else z)
+    if key is None and i % 4 == 0:
+      continue  # no corrector, no corrector draw
+    queue.append(nchw(table[i + 1]) if key is not None else torch.zeros(
+        BATCH, 3, size, size))
   monkeypatch.setattr(sampling, "normal",
                       lambda shape_, generator, device: queue.pop(0))
   monkeypatch.setattr(type(sde_p), "prior_sampling",

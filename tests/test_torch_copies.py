@@ -249,12 +249,34 @@ def test_ddpm_state_dict_equals_the_jax_packages(path, tiny):
   _assert_state_dicts_equal(configs.load_config(path, TINY if tiny else ()))
 
 
-def test_other_models_raise_naming_roadmap():
-  config = configs.read_config(
-      str(configs.CONFIG_DIR / "ve" / "ncsnv2" / "cifar10.py"))
-  assert config.model.name == "ncsnv2_64"
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    interop.flax_params_to_torch_state_dict({}, config)
+NCSNV2_CASES = [(rel, ()) for rel in LEAVES if rel.startswith("ve/ncsnv2/")
+                ] + [("ve/ncsnv2/bedroom.py", ("model.name=ncsnv2_256",)),
+                     ("ve/ncsnv2/cifar10.py", ("data.image_size=28",))]
+
+
+@pytest.mark.parametrize("rel,overrides", NCSNV2_CASES)
+def test_ncsnv2_param_map_equals_the_jax_packages(rel, overrides):
+  """The three shipped NCSNv2 files, ncsnv2_256 (no shipped file uses it)
+  and 28² (the adjust_padding size), row for row, and the state_dicts the
+  two make of one params tree."""
+  config = configs.load_config(str(configs.CONFIG_DIR / rel), overrides)
+  assert interop.ncsnv2_param_map(config) == jax_interop.ncsnv2_param_map(
+      config)
+  _assert_state_dicts_equal(config)
+
+
+def test_ncsn_map_has_no_jax_counterpart():
+  """NCSN v1: the JAX package has no map (tests/test_torch_ncsnv2.py holds
+  the port's by forward parity); the port's has every conditional norm and
+  no sigmas buffer."""
+  config = configs.read_config(str(configs.CONFIG_DIR / "ve/ncsn/cifar10.py"))
+  with pytest.raises(NotImplementedError):
+    jax_interop.flax_params_to_torch_state_dict({}, config)
+  rows = interop.ncsn_param_map(config)
+  # normalizer 1, residual blocks 8 x 2, refine1 8, refine2 and 3 14 each,
+  # refine4 18
+  assert sum(k.endswith("embed.weight") for k, _, _ in rows) == 71
+  assert all(k != "sigmas" for k, _, _ in rows)
 
 
 def test_image_grid_and_png_equal_the_jax_packages(tmp_path):

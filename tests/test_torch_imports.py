@@ -34,6 +34,8 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.models.layers",
     "score_sde_pytorch_tpu_torch.models.layerspp",
     "score_sde_pytorch_tpu_torch.models.ncsnpp",
+    "score_sde_pytorch_tpu_torch.models.ncsnv2",
+    "score_sde_pytorch_tpu_torch.models.normalization",
     "score_sde_pytorch_tpu_torch.models.utils",
     "score_sde_pytorch_tpu_torch.models.ema",
     "score_sde_pytorch_tpu_torch.losses",
@@ -105,6 +107,51 @@ def test_cli_recipe_runs_with_the_jax_package_blocked(tmp_path):
       tmp_path / "stdout.txt").read_text()
   for sub in ("checkpoints/checkpoint_2.pth", "samples/iter_4/sample.png",
               "generated/samples_0.npz"):
+    assert (tmp_path / sub).is_file(), sub
+
+
+TINY_NCSN = ["--config.model.nf=8", "--config.data.image_size=16",
+             "--config.model.num_scales=2", "--config.sampling.n_steps_each=2"]
+TINY_CHURCH = ["--config.model.nf=16", "--config.model.ch_mult=(1,2,2)",
+               "--config.model.num_res_blocks=1",
+               "--config.model.attn_resolutions=(8,)",
+               "--config.data.image_size=16", "--config.model.num_scales=2"]
+
+
+@pytest.mark.parametrize("rel,tiny,nfe", [
+    ("ve/ncsn/cifar10.py", TINY_NCSN, 6),
+    ("ve/ncsnv2/cifar10.py", TINY_NCSN, 6),
+    ("tpu/church_256_ncsnpp_tpu.py", TINY_CHURCH, 4)])
+def test_refinenet_and_bf16_recipes_run_with_the_jax_package_blocked(
+    tmp_path, rel, tiny, nfe):
+  """The tiny train (2 steps) -> sample recipe of ve/ncsn/cifar10.py (NCSN
+  v1, the SMLD loss, annealed Langevin dynamics), ve/ncsnv2/cifar10.py and
+  the bf16 church file, in a child where the JAX package, jax and flax
+  cannot be imported."""
+  common = ["--config", "score_sde_pytorch_tpu_torch/configs/" + rel,
+            "--workdir", str(tmp_path), "--device", "cpu"] + tiny
+  train = ["--mode", "train", "--config.training.batch_size=4",
+           "--config.training.n_jitted_steps=1",
+           "--config.training.n_iters=2", "--config.training.log_freq=1",
+           "--config.training.eval_freq=2",
+           "--config.training.snapshot_freq=2",
+           "--config.training.snapshot_freq_for_preemption=2",
+           "--config.training.snapshot_sampling=False"]
+  out = run_child(textwrap.dedent(f"""
+      import math
+      from score_sde_pytorch_tpu_torch import main
+      run = main.main({common + train!r})
+      assert all(math.isfinite(v) for _, v in run['train_losses']), run
+      rounds = main.main({common + ["--mode", "sample",
+                                    "--config.eval.batch_size=2"]!r})
+      assert [r['nfe'] for r in rounds] == [{nfe}], rounds
+      leaked = [m for m, v in sys.modules.items()
+                if v is not None and m.split('.')[0] in {JAX_NAMES!r}]
+      assert not leaked, leaked
+      print('ok')
+      """), OMP_NUM_THREADS=1)  # one torch thread: see tests/torch_threads.py
+  assert out.strip().endswith("ok")
+  for sub in ("checkpoints/checkpoint_1.pth", "generated/samples_0.npz"):
     assert (tmp_path / sub).is_file(), sub
 
 
@@ -198,8 +245,8 @@ def test_vp_slice_configs_train_and_sample_with_the_jax_package_blocked():
         x = sde.prior_sampling((2, 3, 16, 16), g, 'cpu')
         t = torch.full((2,), sde.T)
         with torch.no_grad():
-          x, _ = corrector(x, t, torch.randn((sc.n_steps_each, 2, 3, 16, 16),
-                                             generator=g))
+          x, _ = corrector(x, t, lambda step: torch.randn((2, 3, 16, 16),
+                                                          generator=g))
           x, x_mean = predictor(x, t, torch.randn((2, 3, 16, 16),
                                                   generator=g))
         assert torch.isfinite(loss) and torch.isfinite(x_mean).all(), rel
@@ -366,11 +413,12 @@ def test_bad_overrides_raise(override, error):
 
 
 @pytest.mark.parametrize("override", ["model.remat=True",
-                                      "model.dtype=bfloat16"])
+                                      "model.dtype=float16"])
 def test_unsupported_settings_raise(override):
-  """model.dtype other than float32 raises. model.remat raised until remat
-  was ported: it now loads, with model.remat_min_res, and NCSN++ takes both
-  up (its gradients: tests/test_torch_hires.py)."""
+  """model.dtype other than float32 or bfloat16 raises (bfloat16 raised
+  until it was ported: tests/test_torch_bf16.py). model.remat raised until
+  remat was ported: it now loads, with model.remat_min_res, and NCSN++
+  takes both up (its gradients: tests/test_torch_hires.py)."""
   if override != "model.remat=True":
     with pytest.raises(NotImplementedError):
       configs.load_config(FLAGSHIP, [override])
@@ -386,12 +434,14 @@ def test_unsupported_settings_raise(override):
 
 @pytest.mark.parametrize("mode", ["eval"])
 def test_train_and_eval_modes_raise_naming_roadmap(mode, tmp_path):
-  """--mode eval and every sampler are ported; a model that is not yet
-  (NCSNv2) raises naming ROADMAP before any checkpoint is read."""
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  """--mode eval, every sampler and every model of the JAX package are
+  ported (NCSNv2, which raised here naming ROADMAP.md, too); a model name
+  that no package registers raises, naming the registered ones, before
+  any checkpoint is read."""
+  with pytest.raises(NotImplementedError, match="no model named.*ncsnv2_64"):
     main.main(["--config", FLAGSHIP, "--workdir", str(tmp_path),
                "--mode", mode, "--device", "cpu",
-               "--config.model.name=ncsnv2_64", "--config.model.nf=16",
+               "--config.model.name=ncsnv3", "--config.model.nf=16",
                "--config.model.ch_mult=(1,2)",
                "--config.model.num_res_blocks=1",
                "--config.model.attn_resolutions=(8,)",

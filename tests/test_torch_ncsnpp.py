@@ -146,6 +146,35 @@ def test_conv_downsample_matches_jax():
   np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+def test_upsample_conv_matches_jax():
+  """The transposed conv + FIR of progressive='residual''s output pyramid
+  (JAX upfirdn2d.py:152-181)."""
+  rng = np.random.default_rng(8)
+  x = rng.normal(size=(2, 8, 8, 5)).astype(np.float32)
+  w = (rng.normal(size=(3, 3, 5, 7)) / np.sqrt(45)).astype(np.float32)
+  want = np.asarray(jax_fir.upsample_conv_2d(jnp.asarray(x), jnp.asarray(w),
+                                             FIR))
+  got = nhwc(upfirdn2d.upsample_conv_2d(
+      nchw(x), torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+      FIR))
+  assert got.shape == want.shape == (2, 16, 16, 7)
+  np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("up,down", [(True, False), (False, False)])
+def test_fused_conv_matches_jax(up, down):
+  """Conv2dFused up (the residual output pyramid's) and plain."""
+  rng = np.random.default_rng(9)
+  x = rng.normal(size=(2, 8, 8, 5)).astype(np.float32)
+  blk = jax_layerspp.Conv2dFused(7, up=up, down=down,
+                                 kernel_init=jax_layers.default_init())
+  params = init_params(blk, x)
+  want = np.asarray(blk.apply({"params": params}, x))
+  port = layerspp.Conv2dFused(5, 7, 3, generator=gen(), up=up, down=down)
+  port.load_state_dict(to_torch_state(params), strict=True)
+  np.testing.assert_allclose(nhwc(port(nchw(x))), want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("name", ["elu", "relu", "lrelu", "swish", "Swish"])
 def test_activations_match_jax(name):
   x = np.linspace(-4, 4, 101, dtype=np.float32)
@@ -306,15 +335,24 @@ def test_flagship_state_dict_matches_jax_shapes():
     ("progressive_input", "input_skip"), ("progressive", "residual"),
     ("resblock_type", "ddpm")])
 def test_unported_branches_raise(key, value):
-  """The values no shipped config uses raise naming ROADMAP.md.
-  ``output_skip`` and ``input_skip`` raised until they were ported: each
-  now builds alone on the tiny flagship, loads the JAX weights with
-  ``strict=True`` and matches JAX (both pyramids together:
-  tests/test_torch_hires.py)."""
+  """The values no shipped config uses, which raised until they were
+  ported: each now builds alone on the tiny flagship, loads the JAX weights
+  with ``strict=True`` and matches JAX (both pyramids together:
+  tests/test_torch_hires.py). An unconditional model keeps the reference's
+  unused ``Dense_0`` in each resblock, zeros from the map; a DDPM-resblock
+  model resamples with separate FIR Up/Downsample modules."""
   cfg = tiny_flagship_config()
   cfg.model[key] = value
-  if value in ("output_skip", "input_skip"):
-    assert_forward_matches_jax(build_pair(cfg))
-    return
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    mutils.create_model(cfg, "cpu", gen())
+  pair = build_pair(cfg)
+  assert_forward_matches_jax(pair)
+  model = pair[3]
+  if key == "conditional":
+    # conv_in right after FourierProj: no Dense_t0, Dense_t1
+    assert isinstance(model.all_modules[1], layers.Conv2d)
+  if key == "resblock_type":
+    assert any(isinstance(m, layerspp.ResnetBlockDDPMpp)
+               for m in model.modules())
+  cfg.model[key] = "unknown" if isinstance(value, str) else value
+  if isinstance(value, str):
+    with pytest.raises(ValueError, match="unknown"):
+      mutils.create_model(cfg, "cpu", gen())

@@ -134,7 +134,7 @@ def test_corrector_step_matches_jax(monkeypatch):
           jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t))
   got_x, got_mean = sampling.langevin_corrector(
       sde_lib.VESDE(N=100), port_score, snr=0.16, n_steps=1)(
-          nchw(x), torch.from_numpy(t), nchw(noise)[None])
+          nchw(x), torch.from_numpy(t), lambda step: nchw(noise))
   np.testing.assert_allclose(nhwc(got_mean), want_mean, atol=1e-4, rtol=1e-5)
   np.testing.assert_allclose(nhwc(got_x), want_x, atol=1e-4, rtol=1e-5)
 
@@ -179,8 +179,7 @@ def test_four_step_pc_chain_on_tiny_model_matches_jax(monkeypatch):
   want = np.asarray(x_mean)
 
   # Port: its sampler, fed the same noise in its draw order.
-  queue = [nchw(noises[i, 0])[None] if kind == 0 else nchw(noises[i, 1])
-           for i in range(n_steps) for kind in (0, 1)]
+  queue = [nchw(noises[i, kind]) for i in range(n_steps) for kind in (0, 1)]
   monkeypatch.setattr(sampling, "normal",
                       lambda shape, generator, device: queue.pop(0))
   monkeypatch.setattr(sde_lib.VESDE, "prior_sampling",
@@ -252,6 +251,51 @@ def test_predictor_only_sampling_with_corrector_none():
   samples, nfe = sampler(torch.Generator().manual_seed(0))
   assert nfe == 6 and samples.shape == (2, 16, 16, 3)
   assert torch.isfinite(samples).all()
+
+
+@pytest.mark.parametrize("corrector", ["langevin", "ald"])
+@pytest.mark.parametrize("entry", ["pc_sampler", "inpainter"])
+def test_correctors_draw_each_steps_noise_when_it_runs(corrector, entry,
+                                                       monkeypatch):
+  """With n_steps_each = 5, no noise tensor of shape (n_steps,) + state is
+  made: every draw through ``sampling.normal`` is one state's shape, and a
+  corrector's draws come one per Langevin step, between its network
+  evaluations."""
+  from score_sde_pytorch_tpu_torch import controllable_generation as cg
+  cfg = tiny_flagship_config()
+  cfg.model.num_scales = 2
+  cfg.sampling.corrector = corrector
+  cfg.sampling.n_steps_each = 5
+  model = mutils.create_model(cfg, "cpu", torch.Generator().manual_seed(0))
+  events, draw = [], sampling.normal
+
+  def recording_normal(shape, generator, device):
+    events.append(tuple(shape))
+    return draw(shape, generator, device)
+
+  monkeypatch.setattr(sampling, "normal", recording_normal)
+  model.register_forward_pre_hook(lambda m, a: events.append("eval"))
+  sde = sde_lib.build_sde(cfg)
+  g = torch.Generator().manual_seed(0)
+  if entry == "pc_sampler":
+    out, nfe = sampling.get_sampling_fn(cfg, sde, model, (2, 16, 16, 3),
+                                        lambda v: v, device="cpu")(g)
+    assert nfe == 2 * 6
+  else:
+    data = torch.rand(2, 16, 16, 3, generator=g)
+    out = cg.get_pc_inpainter(
+        sde, model, sampling.get_predictor(cfg.sampling.predictor),
+        sampling.get_corrector(corrector), lambda v: v, cfg.sampling.snr,
+        n_steps=5, continuous=True)(g, data, torch.ones_like(data))
+  assert torch.isfinite(out).all()
+  draws = [e for e in events if e != "eval"]
+  assert set(draws) == {(2, 3, 16, 16)}
+  # The corrector's 5 draws each come with its own evaluation; the
+  # inpainter also draws its 2 projections' noise per step.
+  assert len(draws) == 2 * (6 if entry == "pc_sampler" else 8)
+  assert events.count("eval") == 2 * 6
+  first = events.index("eval")
+  assert events[first:first + 10].count("eval") == 5
 
 
 def test_unported_samplers_raise_naming_roadmap():
