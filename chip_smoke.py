@@ -4,13 +4,15 @@ NVIDIA GPU. Run it from the root of a checkout:
 
     python3 chip_smoke.py
 
-It needs a CUDA device and the CUDA toolkit (nvcc), and imports nothing of
-JAX or of the JAX package. Phases, each of which fails the run if it fails
-(about 15 minutes on one H100):
+It needs a CUDA device, the CUDA toolkit (nvcc) and g++, and imports
+nothing of JAX, of the JAX package or of TensorFlow. Phases, each of which
+fails the run if it fails (about 14 minutes on one H100):
 
 1. the card's name and power limit; the kernels built from
    score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
-   one nvcc each, started together), with build times and ptxas reports;
+   one nvcc each) and the host library from
+   score_sde_pytorch_tpu_torch/native/ (g++), all started together, with
+   build times and ptxas reports;
    no attention kernel may spill registers, and each must hold tensor-core
    (HMMA) instructions where cuobjdump can show them;
 2. [kernel] the attention forward kernel against the plain PyTorch
@@ -81,7 +83,7 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails
    batch 4 (known half and gray channel kept within 1e-3), and the forward
    and gradient through the kernels against the plain attention (TF32
    off); the multiattn file's forward (attention at 32² too); ``main
-   --mode train`` at its batch of 64 for 5 steps and a resume to 10; and
+   --mode train`` at its batch of 64 for 2 steps and a resume to 4; and
    the train step's peak memory with remat at batch 64 and without it at
    the largest batch that fits;
 17. [hires-1024]: the full-width ve/celebahq_ncsnpp_continuous.py (1024²,
@@ -95,21 +97,35 @@ JAX or of the JAX package. Phases, each of which fails the run if it fails
 19. [ncsn*], [ncsnv2*]: NCSN v1 (ve/ncsn/cifar10.py) and NCSNv2
    (ve/ncsnv2/cifar10.py, bedroom.py, an ncsnv2_256 override) at full
    width: forwards against the CPU, ``main --mode train`` and ALD
-   ``main --mode sample``, one sampler step's peak memory at batch 1024,
+   ``main --mode sample`` (NCSN v1 at 10 scales x 20 steps, cut from 100),
+   one sampler step's peak memory at batch 1024,
    the 128² train step;
 20. [bf16-church*], [bf16-1024]: the two bf16 files: ``main --mode
    train`` and a resume, ``--mode sample``, the train step's time and
    memory in bf16 and fp32, the bf16 forward's distance from fp32; the
-   1024² remat train step.
+   1024² remat train step;
+21. [data-*]: the data sources, on files written from a seed under a
+   temporary directory: [data-church] ve/church_ncsnpp_continuous.py (LSUN
+   256²) on a folder of 320x256 JPEGs, ``main --mode train`` at its batch
+   of 64 and a resume that skips its streams across an epoch boundary, the
+   loader's images/s alone against the step's demand and ``skip`` over
+   10⁵ batches with no image decoded; [data-ffhq]
+   ve/ffhq_ncsnpp_continuous.py (1024², batch 8) on TFRecords of
+   3x1024x1024 in 2 shards, train and resume, the reader's MB/s with both
+   CRCs and the CRC's GB/s; [data-celeba] ve/celeba_ncsnpp.py (CELEBA 64²)
+   on 178x218 PNGs, train and resume at batch 128, then ``main --mode
+   eval`` with the bits/dim stage over the streamed test split;
+   [data-native] the C++ loader against the python pipeline in images/s
+   (SVHN from a ``.mat`` at 32², the church folder in memory at 256²).
 
 Network evaluations are counted with a forward hook (the PC sampler's NFE
 is N·(n_steps + 1) whatever the corrector; the "none" predictor evaluates
 nothing), and every run above holds the attention launches per evaluation
-to 6 (NCSN++/DDPM++ at 32²), 4 (the DDPM at 32² and 256², the church
-NCSN++ in fp32 and bf16), 7 (multiattn), 3 (1024², fp32 and bf16) and 0
-(NCSN, NCSNv2), and the backward calls to as many per train step (remat
-recomputes the resblocks, not the attention) and per bits/dim drift
-evaluation.
+to 6 (NCSN++/DDPM++ at 32², the CelebA NCSN++ at 64²), 4 (the DDPM at
+32² and 256², the church NCSN++ in fp32 and bf16), 7 (multiattn), 3
+(1024², fp32 and bf16) and 0 (NCSN, NCSNv2), and the backward calls to
+as many per train step (remat recomputes the resblocks, not the
+attention) and per bits/dim drift evaluation.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
@@ -204,7 +220,7 @@ HQ1024_ATTN_PER_FORWARD = 3  # 2 at 16² ([B, 256, 512]) and 1 at 8²
 HIRES_BATCH = 4              # 256² and 1024² forwards and samplers
 HIRES_GRAD_BATCH = 2
 HIRES_SCALES = 10            # num_scales cut from 2000 (church) for the time
-HIRES_TRAIN_STEPS = 5        # one n_jitted_steps call, then a resume to 10
+HIRES_TRAIN_STEPS = 5        # the 256² DDPM's train: one n_jitted_steps call
 DDPM256_TRAIN_BATCH = 8      # a batch that fits without remat (config: 64)
 DDPM256_SCALES = 25          # discrete VP rules need num_scales > beta_max
 HQ1024_TRAIN_BATCH = 8       # the config's own
@@ -218,6 +234,7 @@ BEDROOM_CONFIG = os.path.join(CONFIGS, "ve", "ncsnv2", "bedroom.py")
 BF16_CHURCH_CONFIG = os.path.join(CONFIGS, "tpu", "church_256_ncsnpp_tpu.py")
 BF16_1024_CONFIG = os.path.join(CONFIGS, "tpu", "celebahq_1024_ncsnpp_tpu.py")
 NCSN_SAMPLE_BATCH = 64
+NCSN_SAMPLE_STEPS = 20       # ALD steps per scale, cut from 100 for the time
 NCSN_TRAIN_STEPS = 5         # then a resume to 10
 NCSNV2_SCALES = 20           # num_scales cut from 232 for the time
 BEDROOM_BATCHES = (128, 64, 32)
@@ -225,6 +242,25 @@ V2_256_BATCH = 4
 BF16_CHURCH_ATTN = 4         # 3 x [B, 256, 256] and 1 x [B, 16, 256]
 BF16_1024_ATTN = 3           # 2 x [B, 256, 512] and 1 x [B, 64, 512]
 CHURCH_FP32_TRAIN_BATCH = 64  # [hires-memory]'s remat step, for comparison
+# The short train runs (the data phases, [hires-train], [bf16-church-train]):
+# ``main --mode train`` for 2 steps of one batch each and a resume to 4, so
+# the resume skips 2 train batches and 1 eval batch.
+SHORT_STEPS = 2
+# The data phases: files written from a seed, read through the port's
+# sources.
+FFHQ_CONFIG = os.path.join(CONFIGS, "ve", "ffhq_ncsnpp_continuous.py")
+CELEBA_CONFIG = os.path.join(CONFIGS, "ve", "celeba_ncsnpp.py")
+CHURCH_SPLITS = {"train": 96, "test": 64}  # one batch of 64 per epoch
+CHURCH_JPEG_WH = (320, 256)  # LSUN's layout: the short side 256
+FFHQ_RECORDS = 24            # 3 batches of 8 per epoch, in 2 shards
+CELEBA_SPLITS = {"train": 128, "test": 32}
+CELEBA_PNG_WH = (178, 218)   # aligned CelebA
+CELEBA_ATTN_PER_FORWARD = 6  # 4 down blocks at 16², the 8² bottleneck, 1 up
+CELEBA_EVAL_BATCH = 32       # the test split in one batch (config 1024)
+SKIP_BATCHES = 100_000
+STEP_DEMAND = (64, 2.2)      # church: 64 images per 2.2 s step (PERF.md §5)
+SVHN_IMAGES = {"train": 4096, "test": 512}
+NATIVE_BATCHES = 50
 
 
 def check(ok: bool, what: str) -> None:
@@ -316,11 +352,23 @@ def _sass_mma_counts(lib_path) -> dict:
   return counts
 
 
+def _host_build() -> tuple:
+  from score_sde_pytorch_tpu_torch.native import build
+  start = time.perf_counter()
+  path = build.build()
+  return path, time.perf_counter() - start
+
+
 def phase_build(*modules) -> None:
-  """One nvcc per kernel source, all started together. Fails if an
-  attention kernel spills registers or has no tensor-core instruction."""
-  with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+  """One nvcc per kernel source and the g++ of the host library (native
+  loader, CRC-32C), all started together. Fails if an attention kernel
+  spills registers or has no tensor-core instruction."""
+  with concurrent.futures.ThreadPoolExecutor(len(modules) + 1) as pool:
+    host = pool.submit(_host_build)
     libs = list(pool.map(lambda m: m.kernel_library(), modules))
+    host_path, host_seconds = host.result()
+  say(f"[build] {host_path.name}: g++ {host_seconds:.2f} s (dataloader.cpp, "
+      "crc32c.cpp)")
   for lib in libs:
     say(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
     kernel = None
@@ -1752,13 +1800,10 @@ def phase_hires(torch, attn, card_line: str) -> tuple:
     del model
   finally:
     _tf32_restore(torch, defaults)
-  flags = {"training.n_iters": HIRES_TRAIN_STEPS, "training.log_freq": 5,
-           "training.eval_freq": 5, "training.snapshot_freq": 5,
-           "training.snapshot_freq_for_preemption": 5}
   with tempfile.TemporaryDirectory() as workdir:
-    train = phase_train_run(torch, attn, CHURCH_CONFIG, workdir, flags,
-                            HIRES_ATTN_PER_FORWARD, "[hires-train]",
-                            resume_to=2 * HIRES_TRAIN_STEPS,
+    train = phase_train_run(torch, attn, CHURCH_CONFIG, workdir,
+                            short_train_flags(), HIRES_ATTN_PER_FORWARD,
+                            "[hires-train]", resume_to=2 * SHORT_STEPS,
                             card_line=card_line)
   phase_remat_memory(torch, attn, configs.load_config(CHURCH_CONFIG),
                      card_line)
@@ -1947,7 +1992,8 @@ def phase_ncsn(torch, attn, card_line: str) -> None:
   scales, annealed Langevin dynamics with 100 steps per scale) at full
   width: the forward on the card against the CPU (TF32 off); ``main --mode
   train`` at the config's batch for 5 steps and a resume to 10; ``main
-  --mode sample`` at the config's 10 x 100 steps and batch 64; one sampler
+  --mode sample`` at the config's 10 scales x 20 steps (cut from 100) and
+  batch 64; one sampler
   step at the config's eval.batch_size, whose peak memory is held below a
   forward's plus half of the stacked noise the corrector used to draw.
   Every run counts its evaluations and holds the attention launches at
@@ -1979,8 +2025,9 @@ def phase_ncsn(torch, attn, card_line: str) -> None:
                     card_line=card_line)
     # The "none" predictor evaluates nothing: num_scales x n_steps
     # evaluations under a reported NFE of num_scales x (n_steps + 1).
-    phase_main_sample(torch, attn, NCSN_CONFIG, workdir, [], 0,
-                      config.model.num_scales * n_steps,
+    phase_main_sample(torch, attn, NCSN_CONFIG, workdir,
+                      [f"sampling.n_steps_each={NCSN_SAMPLE_STEPS}"], 0,
+                      config.model.num_scales * NCSN_SAMPLE_STEPS,
                       NCSN_SAMPLE_BATCH, "[ncsn-sample]", card_line)
   # One sampler step (num_scales 1: 100 Langevin steps and the "none"
   # predictor) at the eval batch, after one forward at that batch alone.
@@ -2098,8 +2145,8 @@ def phase_ncsnv2(torch, attn, card_line: str) -> None:
 
 def phase_bf16_church(torch, attn, card_line: str) -> tuple:
   """[bf16-church]: tpu/church_256_ncsnpp_tpu.py (model.dtype bfloat16,
-  remat, batch 32) at full width: ``main --mode train`` for 5 steps and a
-  resume to 10 (4 forward launches and 4 backward calls per step), then
+  remat, batch 32) at full width: ``main --mode train`` for 2 steps and a
+  resume to 4 (4 forward launches and 4 backward calls per step), then
   ``main --mode sample`` (PC, num_scales 10, batch 4) on its checkpoint; the
   train step's ms and peak memory at batch 32, beside the fp32 file's at
   the same batch; and at unit gain, the bf16 forward's relative L2
@@ -2110,13 +2157,10 @@ def phase_bf16_church(torch, attn, card_line: str) -> tuple:
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   config = configs.load_config(BF16_CHURCH_CONFIG)
-  flags = {"training.n_iters": HIRES_TRAIN_STEPS, "training.log_freq": 5,
-           "training.eval_freq": 5, "training.snapshot_freq": 5,
-           "training.snapshot_freq_for_preemption": 5}
   with tempfile.TemporaryDirectory() as workdir:
-    train = phase_train_run(torch, attn, BF16_CHURCH_CONFIG, workdir, flags,
-                            BF16_CHURCH_ATTN, "[bf16-church-train]",
-                            resume_to=2 * HIRES_TRAIN_STEPS,
+    train = phase_train_run(torch, attn, BF16_CHURCH_CONFIG, workdir,
+                            short_train_flags(), BF16_CHURCH_ATTN,
+                            "[bf16-church-train]", resume_to=2 * SHORT_STEPS,
                             card_line=card_line)
     sample = phase_main_sample(
         torch, attn, BF16_CHURCH_CONFIG, workdir,
@@ -2183,6 +2227,297 @@ def phase_bf16_1024(torch, attn, card_line: str) -> tuple:
   return (BF16_1024_ATTN * steps, BF16_1024_ATTN * steps)
 
 
+# --- data: seeded files in the layouts of the real sets ----------------------
+
+
+def write_image_folder(root: str, splits: dict, size_wh: tuple, fmt: str,
+                       seed: int) -> str:
+  """``splits[s]`` images of ``size_wh`` (width, height) under
+  ``root/<s>/``, JPEG or PNG: smooth random fields with pixel noise (from
+  a seed), compressible as photographs are. Returns ``root``."""
+  import numpy as np
+  from PIL import Image
+  rng = np.random.default_rng(seed)
+  w, h = size_wh
+  ext = {"JPEG": "jpg", "PNG": "png"}[fmt]
+  for split, n in splits.items():
+    os.makedirs(os.path.join(root, split))
+    for i in range(n):
+      coarse = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3),
+                            dtype=np.uint8)
+      img = np.asarray(Image.fromarray(coarse).resize((w, h),
+                                                      Image.BICUBIC))
+      img = np.clip(img + rng.integers(-16, 17, img.shape), 0, 255)
+      Image.fromarray(img.astype(np.uint8)).save(
+          os.path.join(root, split, f"{i:06d}.{ext}"), fmt, quality=90)
+  return root
+
+
+def _pb_varint(n: int) -> bytes:
+  out = bytearray()
+  while True:
+    byte, n = n & 0x7F, n >> 7
+    out.append(byte | (0x80 if n else 0))
+    if not n:
+      return bytes(out)
+
+
+def _pb_bytes(field: int, payload: bytes) -> bytes:
+  """A length-delimited protobuf field."""
+  return _pb_varint(field << 3 | 2) + _pb_varint(len(payload)) + payload
+
+
+def tfrecord_example(image_chw) -> bytes:
+  """A ``tf.train.Example`` of the FFHQ/CelebAHQ layout: 'shape' (packed
+  int64 list) and 'data' (the CHW uint8 bytes)."""
+  shape = _pb_bytes(3, _pb_bytes(1, b"".join(
+      _pb_varint(int(d)) for d in image_chw.shape)))   # Feature.int64_list
+  data = _pb_bytes(1, _pb_bytes(1, image_chw.tobytes()))  # .bytes_list
+  entries = b"".join(_pb_bytes(1, _pb_bytes(1, key) + _pb_bytes(2, value))
+                     for key, value in ((b"shape", shape), (b"data", data)))
+  return _pb_bytes(1, entries)  # Example.features
+
+
+def write_tfrecords(path: str, images) -> None:
+  """CHW uint8 ``images`` as one TFRecord file, framed and checksummed as
+  TensorFlow's writer frames them."""
+  import struct
+  from score_sde_pytorch_tpu_torch.native.crc32c import crc32c, masked
+  with open(path, "wb") as f:
+    for image in images:
+      record = tfrecord_example(image)
+      length = struct.pack("<Q", len(record))
+      f.write(length + struct.pack("<I", masked(crc32c(length))))
+      f.write(record + struct.pack("<I", masked(crc32c(record))))
+
+
+def write_svhn(root: str, splits: dict, seed: int) -> str:
+  """``{train,test}_32x32.mat`` with ``X`` as SVHN stores it (32, 32, 3, N)
+  and labels ``y``, through scipy.io.savemat."""
+  import numpy as np
+  import scipy.io
+  rng = np.random.default_rng(seed)
+  os.makedirs(root)
+  for split, n in splits.items():
+    scipy.io.savemat(os.path.join(root, f"{split}_32x32.mat"), {
+        "X": rng.integers(0, 256, (32, 32, 3, n), dtype=np.uint8),
+        "y": rng.integers(1, 11, (n, 1), dtype=np.uint8)})
+  return root
+
+
+def _resume_skipped(workdir: str, tag: str, train: int, eval_: int) -> None:
+  log = open(os.path.join(workdir, "stdout.txt")).read()
+  want = [f"Skipped {train} train batches"]
+  want += [f"Skipped {eval_} eval batches"] if eval_ else []
+  for line in want:
+    check(line in log, f"{tag} the resume did not log {line!r}")
+
+
+def short_train_flags(eval_freq: int = SHORT_STEPS, **data) -> dict:
+  """Flags of a short train run: one logged loss per run (two without an
+  eval), the eval loss at the run's end where ``eval_freq`` is
+  ``SHORT_STEPS``, and checkpoints there; ``data`` as ``key=path``."""
+  return dict({"training.n_jitted_steps": 1, "training.n_iters": SHORT_STEPS,
+               "training.log_freq": (SHORT_STEPS if eval_freq == SHORT_STEPS
+                                     else 1),
+               "training.eval_freq": eval_freq,
+               "training.snapshot_freq": SHORT_STEPS,
+               "training.snapshot_freq_for_preemption": SHORT_STEPS},
+              **{f"data.{k}": v for k, v in data.items()})
+
+
+def phase_data_church(torch, attn, data_root: str, card_line: str) -> tuple:
+  """[data-church]: ve/church_ncsnpp_continuous.py (LSUN 256², remat) at
+  its batch of 64 on a folder of JPEGs: ``main --mode train`` and a resume
+  across an epoch boundary; then the loader alone (decode + resize
+  images/s against the step's demand) and ``skip`` over 10⁵ batches.
+  Returns the forward and backward launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import configs, datasets
+  start = time.perf_counter()
+  data = write_image_folder(os.path.join(data_root, "church"), CHURCH_SPLITS,
+                            CHURCH_JPEG_WH, "JPEG", seed=11)
+  say(f"[data-church] {CHURCH_SPLITS} JPEGs of {CHURCH_JPEG_WH[0]}x"
+      f"{CHURCH_JPEG_WH[1]} written in {time.perf_counter() - start:.2f} s")
+  with tempfile.TemporaryDirectory() as workdir:
+    launches = phase_train_run(
+        torch, attn, CHURCH_CONFIG, workdir, short_train_flags(data_dir=data),
+        HIRES_ATTN_PER_FORWARD, "[data-church]", resume_to=2 * SHORT_STEPS,
+        card_line=card_line)
+    _resume_skipped(workdir, "[data-church]", SHORT_STEPS, 1)
+  config = configs.load_config(CHURCH_CONFIG, [f"data.data_dir={data}"])
+  train_it, _ = datasets.get_dataset(config)
+  source = train_it.source
+  handles = list(source.handles())[:STEP_DEMAND[0]]
+  start = time.perf_counter()
+  images = [source.decode(h) for h in handles]
+  decode_s = time.perf_counter() - start
+  check(all(i.shape == (256, 256, 3) for i in images), "church image shape")
+  start = time.perf_counter()
+  batches = [next(train_it) for _ in range(3)]
+  batch_s = time.perf_counter() - start
+  check(all(b.shape == (64, 256, 256, 3) and np.isfinite(b).all()
+            for b in batches), "church batches")
+  demand = STEP_DEMAND[0] / STEP_DEMAND[1]
+  say(f"[data-church] loader alone: decode + resize {len(images) / decode_s:.1f}"
+      f" images/s on one thread; 3 batches of 64 through the iterator "
+      f"(prefetch thread, float32, flips) {3 * 64 / batch_s:.1f} images/s; "
+      f"the step's demand {demand:.1f} images/s ({STEP_DEMAND[0]} per "
+      f"{STEP_DEMAND[1]} s step) (host CPU; {card_line})")
+  fresh, _ = datasets.get_dataset(config)
+  start = time.perf_counter()
+  fresh.skip(SKIP_BATCHES)
+  skip_s = time.perf_counter() - start
+  decoded = fresh.decoded
+  check(decoded == 0, f"skip decoded {decoded} images")
+  after = next(fresh)
+  check(after.shape == (64, 256, 256, 3) and np.isfinite(after).all(),
+        "the batch after skip")
+  say(f"[data-church] skip({SKIP_BATCHES}) on the train stream: "
+      f"{skip_s:.3f} s, {decoded} images decoded ({card_line})")
+  return launches
+
+
+def phase_data_ffhq(torch, attn, data_root: str, card_line: str) -> tuple:
+  """[data-ffhq]: ve/ffhq_ncsnpp_continuous.py (1024², batch 8, remat) on
+  TFRecords of 3x1024x1024 in 2 shards: ``main --mode train`` and a
+  resume; the reader's MB/s with the CRC on, the CRC's GB/s. Returns the
+  forward and backward launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import configs, datasets
+  from score_sde_pytorch_tpu_torch.native.crc32c import crc32c
+  root = os.path.join(data_root, "ffhq")
+  os.makedirs(root)
+  rng = np.random.default_rng(13)
+  start = time.perf_counter()
+  half = FFHQ_RECORDS // 2
+  for shard in range(2):
+    write_tfrecords(os.path.join(root, f"ffhq-r10-{shard:02d}.tfrecords"),
+                    (rng.integers(0, 256, (3, 1024, 1024), dtype=np.uint8)
+                     for _ in range(half)))
+  say(f"[data-ffhq] {FFHQ_RECORDS} records of 3x1024x1024 in 2 shards "
+      f"({sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e6:.1f}"
+      f" MB) written in {time.perf_counter() - start:.2f} s")
+  with tempfile.TemporaryDirectory() as workdir:
+    launches = phase_train_run(
+        torch, attn, FFHQ_CONFIG, workdir,
+        short_train_flags(tfrecords_path=root), HQ1024_ATTN_PER_FORWARD,
+        "[data-ffhq]", resume_to=2 * SHORT_STEPS, card_line=card_line)
+    _resume_skipped(workdir, "[data-ffhq]", SHORT_STEPS, 1)
+  config = configs.load_config(FFHQ_CONFIG, [f"data.tfrecords_path={root}"])
+  train_it, _ = datasets.get_dataset(config)
+  check(train_it.batches_per_epoch == FFHQ_RECORDS // 8,
+        f"[data-ffhq] {train_it.batches_per_epoch} batches per epoch")
+  source = train_it.source
+  handles = list(source.handles())
+  start = time.perf_counter()
+  nbytes = sum(source.decode(h).nbytes for h in handles)
+  read_s = time.perf_counter() - start
+  buf = rng.integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
+  crc32c(buf)
+  start = time.perf_counter()
+  for _ in range(4):
+    crc32c(buf)
+  crc_s = (time.perf_counter() - start) / 4
+  say(f"[data-ffhq] reader: {len(handles)} records, {nbytes / read_s / 1e6:.1f}"
+      f" MB/s (read, both CRCs, Example parse, CHW->HWC) on one thread; "
+      f"CRC-32C {len(buf) / crc_s / 1e9:.2f} GB/s (host CPU; {card_line})")
+  return launches
+
+
+def phase_data_celeba(torch, attn, data_root: str, card_line: str) -> tuple:
+  """[data-celeba]: ve/celeba_ncsnpp.py (CELEBA 64², SMLD) on PNGs at
+  aligned CelebA's 178x218: ``main --mode train`` at its batch of 128 and
+  a resume (no eval loss in training: the test split is one eval batch of
+  32), then ``main --mode eval`` (loss and bits/dim over the streamed test
+  split). Returns the forward and backward launches."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import main
+  data = write_image_folder(os.path.join(data_root, "celeba"), CELEBA_SPLITS,
+                            CELEBA_PNG_WH, "PNG", seed=17)
+  flags = short_train_flags(eval_freq=100 * SHORT_STEPS, data_dir=data)
+  with tempfile.TemporaryDirectory() as workdir:
+    train = phase_train_run(
+        torch, attn, CELEBA_CONFIG, workdir, flags, CELEBA_ATTN_PER_FORWARD,
+        "[data-celeba]", resume_to=2 * SHORT_STEPS, card_line=card_line)
+    _resume_skipped(workdir, "[data-celeba]", SHORT_STEPS, 0)
+    overrides = {"data.data_dir": data, "eval.begin_ckpt": 2,
+                 "eval.end_ckpt": 2, "eval.batch_size": CELEBA_EVAL_BATCH,
+                 "eval.enable_loss": True, "eval.enable_bpd": True,
+                 "eval.enable_sampling": False}
+    attn.flash_attention_launches = 0
+    attn.flash_attention_backward_launches = 0
+    start = time.perf_counter()
+    (record,) = main.main(["--config", CELEBA_CONFIG, "--workdir", workdir,
+                           "--mode", "eval", "--device", "cuda"]
+                          + [f"--config.{k}={v}" for k, v in overrides.items()])
+    seconds = time.perf_counter() - start
+    launches = (attn.flash_attention_launches,
+                attn.flash_attention_backward_launches)
+    with np.load(os.path.join(workdir, "eval", "test_ckpt_2_bpd.npz")) as z:
+      bpd = z["bpd"]
+    with np.load(os.path.join(workdir, "eval", "ckpt_2_loss.npz")) as z:
+      losses = z["all_losses"]
+  test_batches = CELEBA_SPLITS["test"] // CELEBA_EVAL_BATCH
+  check(losses.shape == (test_batches,) and np.isfinite(losses).all(),
+        f"[data-celeba] eval losses {losses}")
+  check(bpd.shape == (5 * CELEBA_SPLITS["test"],) and np.isfinite(bpd).all(),
+        f"[data-celeba] bpd shape {bpd.shape}")
+  drift_evals = sum(record["bpd_nfe"])
+  want = (CELEBA_ATTN_PER_FORWARD * (test_batches + drift_evals),
+          CELEBA_ATTN_PER_FORWARD * drift_evals)
+  say(f"[data-celeba] main --mode eval on checkpoint_2: {seconds:.1f} s wall;"
+      f" eval loss {record['mean_loss']:.6g} over {test_batches} streamed "
+      f"batch(es) of {CELEBA_EVAL_BATCH}; bits/dim {record['bpd']:.6f} (the "
+      f"test split 5 times), RK45 NFE {record['bpd_nfe']}; launches forward "
+      f"{launches[0]}, backward calls {launches[1]} ({card_line})")
+  check(launches == want, f"[data-celeba] eval launches {launches}, "
+        f"want {want}")
+  return train[0] + launches[0], train[1] + launches[1]
+
+
+def _images_per_s(it, batches: int) -> float:
+  for _ in range(2):
+    next(it)
+  start = time.perf_counter()
+  for _ in range(batches):
+    batch = next(it)
+  seconds = time.perf_counter() - start
+  check(batch.dtype.name == "float32" and 0 <= batch.min()
+        and batch.max() <= 1, "loader batch out of [0, 1]")
+  return batches * batch.shape[0] / seconds
+
+
+def phase_data_native(data_root: str, card_line: str) -> None:
+  """[data-native]: the C++ loader (``loader_backend='native'``, two
+  threads) against the python pipeline in images/s: SVHN from a
+  ``.mat`` at 32² and batch 128, and the church folder ``in_memory`` at
+  256² and batch 64."""
+  from score_sde_pytorch_tpu_torch import configs, datasets
+  svhn = write_svhn(os.path.join(data_root, "svhn"), SVHN_IMAGES, seed=19)
+  cases = [
+      ("SVHN 32² batch 128", FLAGSHIP,
+       ["data.dataset=SVHN", f"data.data_dir={svhn}",
+        "data.uniform_dequantization=True"]),
+      ("church in_memory 256² batch 64", CHURCH_CONFIG,
+       [f"data.data_dir={os.path.join(data_root, 'church')}"])]
+  for label, path, overrides in cases:
+    config = configs.load_config(path, overrides)
+    config.data.in_memory = True
+    rates = {}
+    for backend in ("python", "native", "native", "python"):
+      config.data.loader_backend = backend
+      train_it, _ = datasets.get_dataset(config)
+      rates.setdefault(backend, []).append(
+          _images_per_s(train_it, NATIVE_BATCHES))
+      if backend == "native":
+        train_it.close()
+    say(f"[data-native] {label}: images/s python "
+        f"{[round(r, 1) for r in rates['python']]}, native "
+        f"{[round(r, 1) for r in rates['native']]} (in turns; host CPU; "
+        f"{card_line})")
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2198,6 +2533,11 @@ def main() -> int:
   card_line = card()
   say(f"[card] {card_line}; torch {torch.__version__}, CUDA "
       f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+  start = time.perf_counter()
+
+  def lap(what: str) -> None:
+    say(f"[time] {what} done at {time.perf_counter() - start:.1f} s")
+
   phase_build(attn, act)
 
   defaults = _tf32_off(torch)
@@ -2210,6 +2550,7 @@ def main() -> int:
     rec["max_abs_err"] = max(rec["max_abs_err"], wide["max_abs_err"])
   phase_kernel_bf16(torch, attn, card_line)
   record_act, record_act_bwd = phase_fused_act(torch, act)
+  lap("the kernel phases")
 
   config = configs.load_config(
       FLAGSHIP, [f"model.num_scales={SMOKE_SCALES}",
@@ -2247,6 +2588,7 @@ def main() -> int:
                     act.fused_leaky_relu_backward_launches)
     phase_eval_checks(torch, attn, config, model, workdir, card_line)
   del model
+  lap("[sample], [train], [eval]")
   with tempfile.TemporaryDirectory() as workdir:
     vp_train = phase_vp_train(torch, attn, card_line, workdir)
     vp_sample = phase_main_sample(
@@ -2264,29 +2606,45 @@ def main() -> int:
         f"[vp-profile] {attn.flash_attention_launches} kernel launches in 3 "
         f"sampler runs of {evals} evaluations")
   del vp_model
+  lap("the VP phases")
   ddpm256 = phase_ddpm256(torch, attn, card_line)
+  lap("[ddpm-256*]")
   hires = phase_hires(torch, attn, card_line)
+  lap("[hires-*]")
   hires_1024 = phase_hires_1024(torch, attn, card_line)
   phase_ncsn(torch, attn, card_line)
+  lap("[hires-1024], [ncsn*]")
   phase_ncsnv2(torch, attn, card_line)
+  lap("[ncsnv2*]")
   bf16_church = phase_bf16_church(torch, attn, card_line)
   bf16_1024 = phase_bf16_1024(torch, attn, card_line)
+  lap("[bf16-*]")
+  with tempfile.TemporaryDirectory() as data_root:
+    data = [phase_data_church(torch, attn, data_root, card_line)]
+    lap("[data-church]")
+    data.append(phase_data_ffhq(torch, attn, data_root, card_line))
+    lap("[data-ffhq]")
+    data.append(phase_data_celeba(torch, attn, data_root, card_line))
+    lap("[data-celeba]")
+    phase_data_native(data_root, card_line)
+    lap("[data-native]")
   # The card's machine has jax installed, so an import of it would not fail;
   # nor would one of the JAX package, which sits beside the port.
   leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-      "jax", "jaxlib", "flax", "score_sde_pytorch_tpu"))
-  check(not leaked, f"the port imported JAX or the JAX package: "
-        f"{leaked[:5]}")
+      "jax", "jaxlib", "flax", "score_sde_pytorch_tpu", "tensorflow"))
+  check(not leaked, f"the port imported JAX, the JAX package or "
+        f"TensorFlow: {leaked[:5]}")
 
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
        launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
        + vp_eval[0] + ddpm_sample + samplers + ddpm256[0] + hires[0]
-       + hires_1024[0] + bf16_church[0] + bf16_1024[0], record),
+       + hires_1024[0] + bf16_church[0] + bf16_1024[0]
+       + sum(d[0] for d in data), record),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
        train_bwd + eval_bwd + vp_train[1] + vp_eval[1] + ddpm256[1]
-       + hires[1] + hires_1024[1] + bf16_church[1] + bf16_1024[1],
-       record_bwd),
+       + hires[1] + hires_1024[1] + bf16_church[1] + bf16_1024[1]
+       + sum(d[1] for d in data), record_bwd),
       # On no model's path: the sample, train and eval runs launch it 0
       # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],

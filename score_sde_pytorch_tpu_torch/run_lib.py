@@ -17,6 +17,7 @@ import torch
 from score_sde_pytorch_tpu_torch import checkpoint as ckpt_lib
 from score_sde_pytorch_tpu_torch import datasets, evaluation, losses, sampling
 from score_sde_pytorch_tpu_torch import likelihood as likelihood_lib
+from score_sde_pytorch_tpu_torch import native
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.models.ema import ExponentialMovingAverage
@@ -139,6 +140,24 @@ def _evals_before(step: int, n_jitted: int, eval_freq: int) -> int:
              if s % eval_freq < n_jitted)
 
 
+def _skip(it, batches: int, name: str) -> None:
+  """Takes the ``name`` stream up after ``batches`` batches: ``skip`` draws
+  their random numbers without reading an image. The native loader has no
+  fixed order to take up: its stream restarts, as the JAX package's
+  streams do on a resume, and the log says so."""
+  if not batches:
+    return
+  if isinstance(it, native.NativeDataLoader):
+    logging.warning("data.loader_backend='native': the %s stream restarts "
+                    "from its start on resume (%d batches not skipped)",
+                    name, batches)
+    return
+  start = time.perf_counter()
+  it.skip(batches)
+  logging.info("Skipped %d %s batches in %.3f s.", batches, name,
+               time.perf_counter() - start)
+
+
 def train(config, workdir: str, device: str = "cuda") -> dict:
   """Train loop (JAX run_lib.py:66-248).
 
@@ -150,9 +169,10 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
   only where a loss is logged.
 
   A resumed run repeats an uninterrupted one: the checkpoint carries the
-  generators' states, the data streams are replayed to where the run
-  stopped (the port's numpy batches, in one fixed order), and the eval and
-  sampling draws depend only on the step.
+  generators' states, the data streams skip to where the run stopped (the
+  port's batches have one fixed order; ``skip`` reads no image), and the
+  eval and sampling draws depend only on the step. The native loader's
+  streams restart instead.
 
   Returns ``{"initial_step", "step", "train_losses", "eval_losses"}``, the
   losses as ``(step, value)`` pairs of the logged values."""
@@ -171,16 +191,13 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
     ckpt_lib.restore_train_state(meta, state)
   initial_step = state["step"]
 
-  # The numpy pipeline's order is fixed, so a resumed run can replay it.
   train_iter, eval_iter = datasets.get_dataset(config)
   scaler = datasets.get_data_scaler(config)
   n_jitted = config.training.get("n_jitted_steps", 1)
   tcfg = config.training
-  for _ in range(initial_step):
-    next(train_iter)
-  for _ in range(n_jitted * _evals_before(initial_step, n_jitted,
-                                          tcfg.eval_freq)):
-    next(eval_iter)
+  _skip(train_iter, initial_step, "train")
+  _skip(eval_iter, n_jitted * _evals_before(initial_step, n_jitted,
+                                            tcfg.eval_freq), "eval")
 
   sde = sde_lib.build_sde(config)
   step_kwargs = dict(reduce_mean=tcfg.reduce_mean, continuous=tcfg.continuous,

@@ -1,9 +1,9 @@
 """The port's own copies of JAX-package modules equal their originals.
 
 The port imports nothing of the JAX package, so it carries copies of what
-it reads: the config tree, the train path's data pipeline, the NCSN++
-parameter map and the image grid. Each is held to its original here, on the
-CPU: config dicts key for key, batches bit for bit (including the replay a
+it reads: the config tree, the data pipeline, the NCSN++ parameter map,
+the image grid and the C++ data loader's source. Each is held to its original here, on the
+CPU: config dicts key for key, batches bit for bit (including the skip a
 resumed run makes), parameter maps row for row.
 """
 import importlib
@@ -87,7 +87,8 @@ def write_npz(root: Path, rng) -> str:
 @pytest.mark.parametrize("dequantize", [False, True])
 def test_batches_equal_the_jax_python_backend(source, dequantize, tmp_path):
   """The same batches, bit for bit, from fresh iterators and after the
-  replay of k batches that a resumed run makes."""
+  skip of k batches that a resumed run makes (JAX's iterator is run
+  through them)."""
   rng = np.random.default_rng(0)
   overrides = ["training.batch_size=8", "eval.batch_size=8",
                f"data.uniform_dequantization={dequantize}"]
@@ -110,14 +111,13 @@ def test_batches_equal_the_jax_python_backend(source, dequantize, tmp_path):
       a, b = next(got), next(want)
       assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
   skip = 5
-  replayed, _ = datasets.get_dataset(config)
+  skipped, _ = datasets.get_dataset(config)
   fresh, _ = jax_datasets.get_dataset(config, process_index=0,
                                       process_count=1)
-  for _ in range(skip):
-    next(replayed)
+  skipped.skip(skip)
   for _ in range(skip):
     next(fresh)
-  assert np.array_equal(next(replayed), next(fresh))
+  assert np.array_equal(next(skipped), next(fresh))
 
 
 @pytest.mark.parametrize("source", ["synthetic", "npz"])
@@ -177,14 +177,26 @@ def test_scalers_equal_the_jax_packages(centered):
     assert np.array_equal(port_fn(config)(x), jax_fn(config)(x))
 
 
-@pytest.mark.parametrize("override", ["data.dataset=SVHN",
-                                      "data.loader_backend=native"])
+@pytest.mark.parametrize("override", ["data.dataset=IMAGENET",
+                                      "data.loader_backend=turbo"])
 def test_unported_data_paths_raise_naming_roadmap(override, tmp_path):
+  """Every data source of the JAX package is ported (SVHN and the native
+  loader raised here until they were: tests/test_torch_datasets.py). A
+  dataset that neither package reads raises as JAX's does, and so does a
+  loader_backend outside {auto, native, python}, which the JAX package
+  would take for 'python'."""
   config = configs.load_config(FLAGSHIP, [f"data.data_dir={tmp_path}"])
   key, value = override.split("=")
   setattr(config.data, key.split(".")[1], value)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    datasets.get_dataset(config)
+  if key == "data.dataset":
+    message = "Dataset IMAGENET not supported."
+    with pytest.raises(NotImplementedError, match=message):
+      jax_datasets.get_dataset(config, process_index=0, process_count=1)
+    with pytest.raises(NotImplementedError, match=message):
+      datasets.get_dataset(config)
+  else:
+    with pytest.raises(ValueError, match="loader_backend='turbo'"):
+      datasets.get_dataset(config)
 
 
 NCSNPP_LEAVES = [rel for rel in LEAVES
@@ -277,6 +289,18 @@ def test_ncsn_map_has_no_jax_counterpart():
   # refine4 18
   assert sum(k.endswith("embed.weight") for k, _, _ in rows) == 71
   assert all(k != "sigmas" for k, _, _ in rows)
+
+
+def test_native_loader_source_equals_the_jax_packages():
+  """The C++ batch producer is the JAX package's file, byte for byte but
+  for one comment, where the JAX file names the reference by a local path
+  (the port builds it with its own g++ step, beside its own CRC-32C)."""
+  port = ROOT / "score_sde_pytorch_tpu_torch" / "native" / "dataloader.cpp"
+  jax = ROOT / "score_sde_pytorch_tpu" / "native" / "dataloader.cpp"
+  local = "/" + "root/reference/datasets.py"
+  want = jax.read_bytes().replace(local.encode(), b"yang-song's datasets.py")
+  assert want != jax.read_bytes()
+  assert port.read_bytes() == want
 
 
 def test_image_grid_and_png_equal_the_jax_packages(tmp_path):

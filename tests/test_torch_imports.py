@@ -23,6 +23,11 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.configs",
     "score_sde_pytorch_tpu_torch.configs.builder",
     "score_sde_pytorch_tpu_torch.datasets",
+    "score_sde_pytorch_tpu_torch.tfrecord",
+    "score_sde_pytorch_tpu_torch.native",
+    "score_sde_pytorch_tpu_torch.native.build",
+    "score_sde_pytorch_tpu_torch.native.crc32c",
+    "score_sde_pytorch_tpu_torch.native.loader",
     "score_sde_pytorch_tpu_torch.utils",
     "score_sde_pytorch_tpu_torch.utils.image",
     "score_sde_pytorch_tpu_torch.sde",
