@@ -58,6 +58,21 @@ fails the run if it fails (about 17 minutes on one H100):
    augmented drift evaluation (forward + vjp) against the plain forward,
    the attention kernels' share of its device time, the peak memory of a
    chunked evaluation at batch 1024, and the bits/dim with TF32 on vs off;
+   then [stats]: tools/compute_dataset_stats.py on that split with those
+   weights, its mu and sigma within 1e-5 of run_inception's on the card;
+   [debug]: debug.py on [train]'s checkpoint (PYTHONBREAKPOINT=0), the step
+   and finite score statistics;
+9a. [uri]: ``myfs://`` registered onto a temporary directory, then the
+   flagship's ``main --mode train`` at full width and batch 32 on a
+   ``myfs://`` workdir (2 steps with snapshot sampling and
+   ``training.trace_steps=2``, a traced resume to 4), ``--mode eval`` (the
+   loss) and ``--mode sample``: every artifact under the mirror root, none
+   under a local ``myfs:``, both traces naming the attention forward and
+   backward kernels, and an unregistered ``gs://`` workdir raising before
+   any step; [demo]: ``score_sde_pytorch_tpu_torch.demo`` at the flagship's
+   full width with random weights (num_scales 50): PC, ODE, DPM-Solver++,
+   bits/dim, inpainting and colorization, its five PNGs and finite
+   bits/dim;
 9b. data parallelism over torch.distributed, each rank a process of this
    script (``--ddp-worker``) that reports its counts, started by torchrun
    for [ddp-nccl] and with torchrun's environment for the two-rank phases:
@@ -125,7 +140,9 @@ fails the run if it fails (about 17 minutes on one H100):
 20. [bf16-church*], [bf16-1024]: the two bf16 files: ``main --mode
    train`` and a resume, ``--mode sample``, the train step's time and
    memory in bf16 and fp32, the bf16 forward's distance from fp32; the
-   1024² remat train step;
+   1024² remat train step; [h100-leaves]: the two configs/h100/ leaves'
+   train steps at their batches (ms/step, images/s, peak memory against
+   the card's total) and one profiled step each (idle share, families);
 21. [data-*]: the data sources, on files written from a seed under a
    temporary directory: [data-church] ve/church_ncsnpp_continuous.py (LSUN
    256²) on a folder of 320x256 JPEGs, ``main --mode train`` at its batch
@@ -180,7 +197,7 @@ TPU_KERNEL = "score_sde_pytorch_tpu/ops/attention.py:77"
 ACT_SOURCE = "score_sde_pytorch_tpu_torch/ops/csrc/fused_act.cu"
 TPU_BWD = "score_sde_pytorch_tpu/ops/attention.py:129"   # _flash_bwd_impl
 TPU_ACT = "score_sde_pytorch_tpu/ops/fused_act.py:33"
-SMOKE_SCALES = 50            # cut from 1000 for the smoke's time
+SMOKE_SCALES = 25            # cut from 1000 for the smoke's time
 SMOKE_BATCH = 16
 SMOKE_ROUNDS = 2
 ATTN_PER_FORWARD = 6         # 5 blocks at 16x16 and the 4x4 bottleneck
@@ -249,7 +266,7 @@ HIRES_TRAIN_STEPS = 5        # the 256² DDPM's train: one n_jitted_steps call
 DDPM256_TRAIN_BATCH = 8      # a batch that fits without remat (config: 64)
 DDPM256_SCALES = 25          # discrete VP rules need num_scales > beta_max
 HQ1024_TRAIN_BATCH = 8       # the config's own
-NO_REMAT_BATCHES = (64, 32, 16, 8, 4)
+NO_REMAT_BATCHES = (32, 24, 16, 8, 4)
 # The bf16 attention of the bf16 files: church (train batch 32) and 1024²
 # (batch 8), at their 16² and bottleneck grids.
 BF16_SHAPES = [(32, 256, 256), (32, 16, 256), (8, 256, 512), (8, 64, 512)]
@@ -297,6 +314,16 @@ DDP_CLI_SCALES = 10          # [ddp-cli] num_scales: 20 NFE a sampler run
 DDP_EVAL_BATCH = 32          # [ddp-cli] eval.batch_size, 16 a rank
 DDP_TIMEOUT = 600
 STEP_DEMAND = (64, 2.2)      # church: 64 images per 2.2 s step (PERF.md §5)
+URI_BATCH = 32               # [uri]: the flagship's train, eval and sample
+URI_SCALES = 10              # [uri] snapshot and sample: 20 NFE
+DEMO_SCALES = 50             # [demo]: PC, inpainting, colorization 100 NFE
+STATS_TOL = 1e-5             # [stats]: mu and sigma against run_inception's
+LEAF_STEPS = 2               # [h100-leaves] timed steps after one warm-up
+H100_LEAVES = [
+    (os.path.join(CONFIGS, "h100", "church_256_ncsnpp_h100.py"),
+     HIRES_ATTN_PER_FORWARD),
+    (os.path.join(CONFIGS, "h100", "celebahq_1024_ncsnpp_h100.py"),
+     HQ1024_ATTN_PER_FORWARD)]
 SVHN_IMAGES = {"train": 4096, "test": 512}
 NATIVE_BATCHES = 50
 
@@ -1140,10 +1167,12 @@ def _write_eval_data(root: str, size: int,
 def phase_eval(torch, attn, workdir: str, card_line: str) -> tuple:
   """``main --mode eval`` in process on [train]'s checkpoint_2 with all
   three stages and the ODE sampler, in a working directory that holds the
-  dataset statistics (``assets/stats/``). Returns the run's forward and
-  backward kernel launches."""
+  dataset statistics (``assets/stats/``), then [stats] on its split.
+  Returns the eval run's forward and backward kernel launches."""
   with tempfile.TemporaryDirectory() as base:
-    return _run_eval(torch, attn, workdir, base, card_line)
+    launches = _run_eval(torch, attn, workdir, base, card_line)
+    phase_stats(torch, base, card_line)
+    return launches
 
 
 def _run_eval(torch, attn, workdir: str, base: str, card_line: str) -> tuple:
@@ -2275,6 +2304,282 @@ def phase_bf16_1024(torch, attn, card_line: str) -> tuple:
   return (BF16_1024_ATTN * steps, BF16_1024_ATTN * steps)
 
 
+# --- the peripherals: URI workdirs, trace, demo, debug, stats, H100 leaves --
+
+
+def phase_uri(torch, attn, card_line: str) -> tuple:
+  """[uri]: ``myfs://`` registered onto a temporary directory
+  (``utils.io.LocalMirrorHandler``), then the flagship's ``main --mode
+  train`` at full width and batch URI_BATCH on ``myfs://bucket/wd``: 2
+  steps with snapshot sampling and ``training.trace_steps=2``, a resume to
+  4 (traced too), ``--mode eval`` (the loss) and ``--mode sample`` (one
+  round). Every artifact must be under the mirror root and none under a
+  local ``myfs:``; the traces must name the attention kernels; an
+  unregistered ``gs://`` workdir must raise before any step. Returns the
+  forward and backward launches."""
+  from score_sde_pytorch_tpu_torch import main
+  from score_sde_pytorch_tpu_torch.utils import io
+  wd = "myfs://bucket/wd"
+  common = ["--config", FLAGSHIP, "--workdir", wd,
+            f"--config.model.num_scales={URI_SCALES}",
+            f"--config.eval.batch_size={URI_BATCH}"]
+  train = ["--mode", "train", f"--config.training.batch_size={URI_BATCH}",
+           "--config.training.n_jitted_steps=1",
+           "--config.training.log_freq=1", "--config.training.eval_freq=2",
+           "--config.training.snapshot_freq=2",
+           "--config.training.snapshot_freq_for_preemption=2",
+           f"--config.training.trace_steps={SHORT_STEPS}"]
+  runs = [
+      ("train", train + ["--config.training.n_iters=2"], 2),
+      ("resume", train + ["--config.training.n_iters=4",
+                          "--config.training.snapshot_sampling=False"], 2),
+      ("eval", ["--mode", "eval", "--config.eval.begin_ckpt=2",
+                "--config.eval.end_ckpt=2", "--config.eval.enable_loss=True",
+                "--config.eval.enable_bpd=False",
+                "--config.eval.enable_sampling=False"], 0),
+      ("sample", ["--mode", "sample"], 0),
+  ]
+  fwd = bwd = 0
+  cwd = os.getcwd()
+  with tempfile.TemporaryDirectory() as base:
+    root, local_cwd = os.path.join(base, "mirror"), os.path.join(base, "cwd")
+    os.makedirs(local_cwd)
+    os.chdir(local_cwd)
+    io.register_scheme("myfs", io.LocalMirrorHandler("myfs", root))
+    try:
+      _reset(attn)
+      try:
+        main.main(["--config", FLAGSHIP, "--workdir", "gs://bucket/wd",
+                   "--mode", "train"])
+        raised = ""
+      except ValueError as e:
+        raised = str(e)
+      check("register_scheme" in raised
+            and _counts(attn) == {"forward": 0, "backward": 0}
+            and not os.listdir(local_cwd),
+            f"[uri] an unregistered gs:// workdir: {raised!r}, launches "
+            f"{_counts(attn)}, {os.listdir(local_cwd)} in the working "
+            "directory")
+      say(f"[uri] gs:// without a handler raised before any step: {raised}")
+      for name, args, steps in runs:
+        _reset(attn)
+        start = time.perf_counter()
+        with network_evals(torch) as evals:
+          main.main(common + args)
+        launches = _counts(attn)
+        say(f"[uri] {name} on {wd}: {time.perf_counter() - start:.1f} s "
+            f"wall; {evals[0]} network evaluations, launches {launches}")
+        check(evals[0] > 0 and launches == {
+            "forward": ATTN_PER_FORWARD * evals[0],
+            "backward": ATTN_PER_FORWARD * steps},
+              f"[uri] {name}: {evals[0]} evaluations, launches {launches}")
+        fwd += launches["forward"]
+        bwd += launches["backward"]
+    finally:
+      io.unregister_scheme("myfs")
+      os.chdir(cwd)
+    check(not os.listdir(local_cwd),
+          f"[uri] {os.listdir(local_cwd)} in the working directory")
+    local = os.path.join(root, "bucket", "wd")
+    found = sorted(os.path.relpath(os.path.join(d, f), local)
+                   for d, _, files in os.walk(local) for f in files)
+    traces = [f for f in found if f.startswith("profile/")]
+    want = ["checkpoints/checkpoint_1.pth", "checkpoints/checkpoint_2.pth",
+            "checkpoints-meta/checkpoint.pth", "samples/iter_2/sample.np",
+            "samples/iter_2/sample.png", "stdout.txt",
+            "eval/ckpt_2_loss.npz", "generated/samples_0.npz",
+            "generated/samples_0.png",
+            "profile/steps_1-2_rank0.pt.trace.json",
+            "profile/steps_3-4_rank0.pt.trace.json"]
+    missing = [f for f in want if f not in found]
+    check(not missing, f"[uri] missing under the mirror root: {missing}")
+    for trace in traces:
+      with open(os.path.join(local, trace)) as f:
+        text = f.read()
+      names = sorted(set(re.findall(r"flash_attention_(fwd|bwd_dkdv|bwd_dq)",
+                                    text)))
+      say(f"[uri] {trace}: {len(text) / 2 ** 20:.1f} MiB, attention "
+          f"kernels {names}")
+      check(names == ["bwd_dkdv", "bwd_dq", "fwd"],
+            f"[uri] {trace} names the kernels {names}")
+    say(f"[uri] under the mirror root: {found} ({card_line})")
+  return fwd, bwd
+
+
+def phase_demo(torch, attn, card_line: str) -> tuple:
+  """[demo]: ``python -m score_sde_pytorch_tpu_torch.demo`` in process at
+  the flagship's full width (the demo's shrink overridden back), random
+  weights, num_scales cut to DEMO_SCALES: its six sections, five PNGs,
+  finite bits/dim, 6 attention launches per counted evaluation and 6
+  backward calls per drift evaluation. Returns the launches."""
+  import io as stdio
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import demo
+  with tempfile.TemporaryDirectory() as out:
+    _reset(attn)
+    printed = stdio.StringIO()
+    start = time.perf_counter()
+    with network_evals(torch) as evals, contextlib.redirect_stdout(printed):
+      result = demo.main(["--out", out, "--config.model.nf=128",
+                          "--config.model.num_res_blocks=4",
+                          f"--config.model.num_scales={DEMO_SCALES}"])
+    seconds = time.perf_counter() - start
+    launches = _counts(attn)
+    pngs = sorted(os.listdir(out))
+  lines = printed.getvalue().splitlines()
+  for line in lines:
+    say(f"[demo] {line}")
+  check(pngs == ["colorized.png", "dpmpp_samples.png", "inpainted.png",
+                 "ode_samples.png", "pc_samples.png"], f"[demo] PNGs {pngs}")
+  check(np.isfinite(result["bpd"]).all(), f"[demo] bits/dim {result['bpd']}")
+  check([line.split(":")[0] for line in lines[:4]] == [
+      "PC sampling", "ODE sampling", "dpmpp sampling", "bits/dim"],
+        f"[demo] printed {lines}")
+  drift = result["bpd_nfe"]
+  check(launches == {"forward": ATTN_PER_FORWARD * evals[0],
+                     "backward": ATTN_PER_FORWARD * drift},
+        f"[demo] {evals[0]} evaluations ({drift} drift), launches "
+        f"{launches}")
+  say(f"[demo] full-width flagship, random weights, num_scales "
+      f"{DEMO_SCALES}: {seconds:.1f} s wall; NFE PC {result['pc_nfe']}, "
+      f"ODE {result['ode_nfe']}, dpmpp {result['dpmpp_nfe']}, bits/dim "
+      f"{drift}; {evals[0]} network evaluations, launches {launches} "
+      f"({card_line})")
+  return launches["forward"], launches["backward"]
+
+
+def phase_debug(torch, attn, workdir: str, card_line: str) -> int:
+  """[debug]: ``python -m score_sde_pytorch_tpu_torch.debug`` in process on
+  [train]'s checkpoint_2 with PYTHONBREAKPOINT=0: the step and finite
+  score statistics, one network evaluation. Returns the launches."""
+  import io as stdio
+  from score_sde_pytorch_tpu_torch import debug
+  previous = os.environ.get("PYTHONBREAKPOINT")
+  os.environ["PYTHONBREAKPOINT"] = "0"
+  printed = stdio.StringIO()
+  _reset(attn)
+  try:
+    with network_evals(torch) as evals, contextlib.redirect_stdout(printed):
+      stats = debug.main(
+          ["--config", FLAGSHIP, "--workdir", workdir, "--ckpt", "2"]
+          + [f"--config.{k}={v}" for k, v in TRAIN_FLAGS.items()])
+  finally:
+    if previous is None:
+      del os.environ["PYTHONBREAKPOINT"]
+    else:
+      os.environ["PYTHONBREAKPOINT"] = previous
+  lines = printed.getvalue().splitlines()
+  say(f"[debug] {lines} ({card_line})")
+  check(lines[0] == "loaded state at step 20" and stats["step"] == 20
+        and math.isfinite(stats["mean"]) and math.isfinite(stats["std"]),
+        f"[debug] printed {lines}")
+  check(evals[0] == 1 and _counts(attn) == {"forward": ATTN_PER_FORWARD,
+                                            "backward": 0},
+        f"[debug] {evals[0]} evaluations, launches {_counts(attn)}")
+  return ATTN_PER_FORWARD
+
+
+def phase_stats(torch, base: str, card_line: str) -> None:
+  """[stats]: ``python -m score_sde_pytorch_tpu_torch.tools.
+  compute_dataset_stats`` in process on [eval]'s ``.npz`` test split with
+  its seeded random Inception weights, on the card, into ``assets/stats/``
+  of [eval]'s working directory: ``mu`` and ``sigma`` within STATS_TOL of
+  those of ``evaluation.run_inception`` on the same images on the card,
+  and ``evaluation.load_dataset_stats`` reads the file."""
+  import numpy as np
+  from score_sde_pytorch_tpu_torch import configs, evaluation
+  from score_sde_pytorch_tpu_torch.tools import compute_dataset_stats
+  overrides = ["data.dataset=NPZ", f"data.data_dir={base}/data"]
+  config = configs.load_config(FLAGSHIP, overrides)
+  with np.load(os.path.join(base, "data", "test.npz")) as z:
+    images = z["images"]
+  cwd = os.getcwd()
+  os.environ["INCEPTION_WEIGHTS_NPZ"] = os.path.join(base, "inception.npz")
+  os.chdir(base)
+  try:
+    start = time.perf_counter()
+    path = compute_dataset_stats.main(
+        ["--config", FLAGSHIP, "--split", "test", "--device", "cuda"]
+        + [f"--config.{o}" for o in overrides])
+    seconds = time.perf_counter() - start
+    stats = evaluation.load_dataset_stats(config)
+    evaluation._INCEPTION_CACHE.clear()  # a fresh network for the check
+    pool = evaluation.run_inception(images, config, "cuda")["pool_3"]
+  finally:
+    os.chdir(cwd)
+    del os.environ["INCEPTION_WEIGHTS_NPZ"]
+    evaluation._INCEPTION_CACHE.clear()
+  mu_err = float(np.abs(stats["mu"] - pool.mean(0)).max())
+  sigma_err = float(np.abs(stats["sigma"] - np.cov(pool, rowvar=False)).max())
+  say(f"[stats] {path} from {images.shape[0]} images on the card: "
+      f"{seconds:.1f} s; keys {sorted(stats)}; max |mu - run_inception's| "
+      f"{mu_err:.3e}, max |sigma - np.cov| {sigma_err:.3e} (tolerance "
+      f"{STATS_TOL:g}) ({card_line})")
+  check(sorted(stats) == ["mu", "pool_3", "sigma"]
+        and stats["pool_3"].shape == (images.shape[0], 2048)
+        and mu_err <= STATS_TOL and sigma_err <= STATS_TOL,
+        f"[stats] mu {mu_err:.3e}, sigma {sigma_err:.3e}")
+
+
+def phase_h100_leaves(torch, attn, card_line: str) -> tuple:
+  """[h100-leaves]: each ``configs/h100/`` leaf's train step at its batch,
+  full width, through the kernels, timed by the grid tool that chose it
+  (``tools/train_step_grid.measure``: one warm-up, then LEAF_STEPS timed
+  steps): ms/step, images/s and peak memory against the card's total (at
+  most 90%, the leaves' rule); then one profiled step: the device's busy
+  time, idle share and kernel families. Returns the launches of the
+  warm-up, timed and profiled steps."""
+  from torch.profiler import ProfilerActivity, profile
+  from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch.tools import train_step_grid
+  total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+  fwd = bwd = 0
+  for path, per in H100_LEAVES:
+    config = configs.load_config(path)
+    batch = config.training.batch_size
+    tag = f"[h100-leaves] {os.path.basename(path)}"
+    profiled = {}
+
+    def profile_one_step(run_steps):
+      with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        run_steps(1)
+        profiled["wall_ms"] = (time.perf_counter() - start) * 1e3
+      profiled["prof"] = prof
+
+    _reset(attn)
+    got = train_step_grid.measure(config, batch, LEAF_STEPS,
+                                  after=profile_one_step)
+    check(not got.get("oom"), f"{tag} out of memory at batch {batch}")
+    launches = _counts(attn)
+    ms, peak = got["ms"], got["peak_gib"]
+    say(f"{tag} (dtype {config.model.dtype}, remat {config.model.remat}) at "
+        f"batch {batch}: {ms:.1f} ms/step = {got['images_per_s']:.2f} "
+        f"images/s over {LEAF_STEPS} steps (SM clock {got['sm_mhz']} MHz, "
+        f"{got['watts']} W); peak max_memory_allocated {peak:.2f} of "
+        f"{total:.2f} GiB ({peak / total:.3f}); launches {launches} in "
+        f"{LEAF_STEPS + 2} steps ({card_line})")
+    want = per * (LEAF_STEPS + 2)
+    check(launches == {"forward": want, "backward": want},
+          f"{tag} launches {launches}, want {want} each")
+    check(peak <= 0.9 * total, f"{tag} peak {peak:.2f} GiB of {total:.2f}")
+    by_kernel = _device_us_by_kernel(profiled.pop("prof"))
+    busy_ms = sum(by_kernel.values()) / 1e3
+    if busy_ms > 0:
+      say(f"{tag} profiled step: device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / ms:.3f} of the unprofiled {ms:.1f} ms/step "
+          f"({1 - busy_ms / profiled['wall_ms']:.3f} of the profiled step's "
+          f"{profiled['wall_ms']:.1f} ms)")
+      _report_families(tag, by_kernel, 1, "step")
+    else:
+      say(f"{tag} profiler: no device time recorded; idle share not "
+          "measured")
+    fwd += want
+    bwd += want
+  return fwd, bwd
+
+
 # --- data: seeded files in the layouts of the real sets ----------------------
 
 
@@ -3192,8 +3497,12 @@ def main() -> int:
     act_launches = (act.fused_leaky_relu_launches,
                     act.fused_leaky_relu_backward_launches)
     phase_eval_checks(torch, attn, config, model, workdir, card_line)
+    debug_fwd = phase_debug(torch, attn, workdir, card_line)
   del model
-  lap("[sample], [train], [eval]")
+  lap("[sample], [train], [eval], [stats], [debug]")
+  uri = phase_uri(torch, attn, card_line)
+  demo = phase_demo(torch, attn, card_line)
+  lap("[uri], [demo]")
   ddp = [phase_ddp_pair(card_line),
          phase_ddp_nccl(torch, attn, card_line, train_ms),
          phase_ddp_cli(card_line)]
@@ -3227,7 +3536,8 @@ def main() -> int:
   lap("[ncsnv2*]")
   bf16_church = phase_bf16_church(torch, attn, card_line)
   bf16_1024 = phase_bf16_1024(torch, attn, card_line)
-  lap("[bf16-*]")
+  leaves = phase_h100_leaves(torch, attn, card_line)
+  lap("[bf16-*], [h100-leaves]")
   with tempfile.TemporaryDirectory() as data_root:
     data = [phase_data_church(torch, attn, data_root, card_line)]
     lap("[data-church]")
@@ -3249,11 +3559,13 @@ def main() -> int:
        launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
        + vp_eval[0] + ddpm_sample + samplers + ddpm256[0] + hires[0]
        + hires_1024[0] + bf16_church[0] + bf16_1024[0]
-       + sum(d[0] for d in data) + sum(d[0] for d in ddp), record),
+       + sum(d[0] for d in data) + sum(d[0] for d in ddp) + uri[0] + demo[0]
+       + debug_fwd + leaves[0], record),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
        train_bwd + eval_bwd + vp_train[1] + vp_eval[1] + ddpm256[1]
        + hires[1] + hires_1024[1] + bf16_church[1] + bf16_1024[1]
-       + sum(d[1] for d in data) + sum(d[1] for d in ddp), record_bwd),
+       + sum(d[1] for d in data) + sum(d[1] for d in ddp) + uri[1] + demo[1]
+       + leaves[1], record_bwd),
       # On no model's path: the sample, train and eval runs launch it 0
       # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],

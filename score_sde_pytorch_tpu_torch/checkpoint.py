@@ -20,7 +20,9 @@ restores; the model entry is the bare module's, so a checkpoint of one
 world size resumes a run of another.
 
 Numbered snapshots live at ``workdir/checkpoints/checkpoint_<N>.pth``; the
-rolling one at ``workdir/checkpoints-meta/checkpoint.pth``.
+rolling one at ``workdir/checkpoints-meta/checkpoint.pth``. The workdir may
+be a URI of a scheme registered with ``utils.io.register_scheme``: every
+read, write and listing goes through ``utils.io``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Optional, Sequence
 import torch
 
 from score_sde_pytorch_tpu_torch import parallel
+from score_sde_pytorch_tpu_torch.utils import io
 
 _PREFIX = "module."
 _NUMBERED = re.compile(r"^checkpoint_(\d+)\.pth$")
@@ -46,16 +49,16 @@ def meta_path(workdir: str) -> str:
 
 
 def has_numbered(workdir: str, step: int) -> bool:
-  return os.path.isfile(numbered_path(workdir, step))
+  return io.exists(numbered_path(workdir, step))
 
 
 def latest_numbered(workdir: str) -> Optional[int]:
   """Largest N of ``checkpoints/checkpoint_N.pth``, or None."""
   ckpt_dir = os.path.join(workdir, "checkpoints")
-  if not os.path.isdir(ckpt_dir):
+  if not io.exists(ckpt_dir):
     return None
-  found = [int(m.group(1)) for m in map(_NUMBERED.match, os.listdir(ckpt_dir))
-           if m]
+  found = [int(m.group(1))
+           for m in map(_NUMBERED.match, io.listdir(ckpt_dir)) if m]
   return max(found) if found else None
 
 
@@ -93,12 +96,28 @@ def save_checkpoint(path: str, model: torch.nn.Module, config, *,
 
 
 def _write(ckpt: dict, path: str) -> None:
-  """``torch.save`` to a temporary name, then rename into place, so a run
-  stopped while writing leaves the previous file whole."""
-  os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-  tmp = path + ".tmp"
+  """``torch.save`` of ``ckpt`` to ``path``. Where ``path`` has a local
+  file (a plain path, or a scheme whose handler's ``localize`` maps it
+  onto one), to a temporary name, then renamed into place, so a run
+  stopped while writing leaves the previous file whole. A handler without
+  a local path has no rename: the file is written through ``open_file``
+  straight to its final name, as Orbax writes to ``gs://``, and a run
+  stopped while writing leaves it truncated."""
+  local = io.localize(path)
+  if "://" in local:
+    io.makedirs(os.path.dirname(path))
+    with io.open_file(path, "wb") as f:
+      torch.save(ckpt, f)
+    return
+  os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
+  tmp = local + ".tmp"
   torch.save(ckpt, tmp)
-  os.replace(tmp, path)
+  os.replace(tmp, local)
+
+
+def _load(path: str) -> dict:
+  with io.open_file(path, "rb") as f:
+    return torch.load(f, map_location="cpu", weights_only=True)
 
 
 def _load_model_state(ckpt: dict, model: torch.nn.Module, path: str) -> None:
@@ -160,7 +179,7 @@ def restore_train_state(path: str, state: dict, group=None) -> int:
   it and sets its own default generators; a rank the checkpoint has none
   for (a run resumed on more ranks) keeps its fresh seed, and its dropout
   does not repeat an uninterrupted run's. Returns the step."""
-  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  ckpt = _load(path)
   if "rng" not in ckpt:
     raise KeyError(f"{path} has no generator states (key 'rng'): it was "
                    "not written by the train loop, so the run cannot resume "
@@ -190,7 +209,7 @@ def restore_model_and_ema(path: str, model: torch.nn.Module, ema) -> int:
   ``ema`` (a ``models.ema.ExponentialMovingAverage``), as evaluation needs
   them: the optimizer and generator states are not read, so any
   reference-schema checkpoint serves. Returns the step."""
-  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  ckpt = _load(path)
   _load_model_state(ckpt, model, path)
   ema.load_state_dict(ckpt["ema"])
   return int(ckpt["step"])
@@ -202,7 +221,7 @@ def restore_ema(path: str, model: torch.nn.Module) -> int:
 
   The ``sigmas`` buffer keeps the model's own value (see
   :func:`_load_model_state`)."""
-  ckpt = torch.load(path, map_location="cpu", weights_only=True)
+  ckpt = _load(path)
   _load_model_state(ckpt, model, path)
   trainable = _trainable(model)
   shadow = ckpt["ema"]["shadow_params"]

@@ -35,6 +35,9 @@ from typing import Iterable
 CONFIG_DIR = Path(__file__).resolve().parent
 _JAX_TREE = ("score_sde_pytorch_tpu", "configs")
 _MISSING = object()
+# Keys that the pipelines read with a default (``config.training.get``) and
+# that no config file sets, as in the JAX package; an override adds them.
+OPTIONAL_KEYS = {"training.trace_steps": 0, "training.profiler_port": 0}
 
 
 class ConfigDict:
@@ -120,9 +123,13 @@ def apply_overrides(config, overrides: Iterable[str]) -> None:
       if part not in node:
         raise KeyError(f"unknown config section {path!r}")
       node = node[part]
-    if leaf not in node:
+    if leaf in node:
+      current = node[leaf]
+    elif path in OPTIONAL_KEYS:
+      current = OPTIONAL_KEYS[path]
+    else:
       raise KeyError(f"unknown config key {path!r}")
-    node[leaf] = _parse_value(text, node[leaf])
+    node[leaf] = _parse_value(text, current)
 
 
 def check_supported(config) -> None:

@@ -24,6 +24,11 @@ CUDA, or gloo, the default on the CPU and the way to put several ranks on
 one card (each given ``--device cuda:0``); neither falls back to the other.
 Plain ``cuda`` is ``cuda:LOCAL_RANK``. Rank 0 logs at INFO and writes
 ``stdout.txt``; the other ranks log warnings only.
+
+``--workdir`` may be a URI (``myfs://bucket/run``) of a scheme that the
+calling program registered with ``utils.io.register_scheme``; every
+artifact then goes through the scheme's handler. A scheme without a
+handler raises before anything runs.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Optional, Sequence
 import torch
 
 from score_sde_pytorch_tpu_torch import parallel
+from score_sde_pytorch_tpu_torch.utils import io
 
 _CONFIG_PREFIX = "--config."
 
@@ -51,6 +57,14 @@ def _device(value: str) -> str:
     raise argparse.ArgumentTypeError(
         f"{value!r}: expected cuda, cuda:N or cpu")
   return value
+
+
+def split_overrides(argv: Sequence[str]) -> tuple:
+  """``(overrides, rest)``: the ``--config.a.b=value`` arguments without
+  their prefix, and the others."""
+  overrides = [a[len(_CONFIG_PREFIX):] for a in argv
+               if a.startswith(_CONFIG_PREFIX)]
+  return overrides, [a for a in argv if not a.startswith(_CONFIG_PREFIX)]
 
 
 def parse_args(argv: Sequence[str]):
@@ -76,11 +90,8 @@ def parse_args(argv: Sequence[str]):
   parser.add_argument("--dist_backend", choices=parallel.BACKENDS,
                       help="torch.distributed backend under torchrun "
                            "(default nccl on cuda, gloo on cpu)")
-  overrides = [a[len(_CONFIG_PREFIX):] for a in argv
-               if a.startswith(_CONFIG_PREFIX)]
-  rest = [a for a in argv if not a.startswith(_CONFIG_PREFIX)]
-  args = parser.parse_args(rest)
-  return args, overrides
+  overrides, rest = split_overrides(argv)
+  return parser.parse_args(rest), overrides
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -112,14 +123,21 @@ def _run(args, overrides, device: torch.device):
   from score_sde_pytorch_tpu_torch import configs, run_lib
   config = configs.load_config(args.config, overrides)
 
-  os.makedirs(args.workdir, exist_ok=True)
+  io.makedirs(args.workdir)
   main_rank = parallel.is_main()
   formatter = logging.Formatter(
       "%(levelname)s - %(filename)s - %(asctime)s - %(message)s")
   handlers = [logging.StreamHandler(sys.stdout)]
+  log_file = None
   if main_rank:
-    handlers.append(
-        logging.FileHandler(os.path.join(args.workdir, "stdout.txt")))
+    log_path = os.path.join(args.workdir, "stdout.txt")
+    if "://" in log_path:
+      # Through the scheme's handler, as the JAX package's main.py writes
+      # its log (a new file per run: a remote store does not append).
+      log_file = io.open_file(log_path, "w")
+      handlers.append(logging.StreamHandler(log_file))
+    else:
+      handlers.append(logging.FileHandler(log_path))
   logger = logging.getLogger()
   previous_level = logger.level
   for handler in handlers:
@@ -139,6 +157,8 @@ def _run(args, overrides, device: torch.device):
     for handler in handlers:
       logger.removeHandler(handler)
       handler.close()
+    if log_file is not None:
+      log_file.close()
     logger.setLevel(previous_level)
 
 if __name__ == "__main__":

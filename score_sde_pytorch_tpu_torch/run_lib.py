@@ -6,12 +6,16 @@ Counterpart of score_sde_pytorch_tpu/run_lib.py:66-248 (``train``),
 or in each rank of a torch.distributed group (``main`` under torchrun; the
 group is ``parallel.default_group()``): every rank feeds its shard of the
 data and computes its rows of each global batch, and rank 0 alone writes
-files, TensorBoard, sample grids and scores.
+files, TensorBoard, sample grids and scores. ``workdir`` may be a URI of a
+scheme registered with ``utils.io.register_scheme``: every file goes
+through ``utils.io``.
 """
 from __future__ import annotations
 
 import logging
 import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -24,6 +28,7 @@ from score_sde_pytorch_tpu_torch import native, parallel
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.models.ema import ExponentialMovingAverage
+from score_sde_pytorch_tpu_torch.utils import io
 from score_sde_pytorch_tpu_torch.utils.image import make_grid, save_image
 
 try:
@@ -44,9 +49,16 @@ class _NullWriter:
 
 
 def _writer(workdir: str):
+  """TensorBoard's writer on the workdir's local path; a scheme whose
+  handler has none gets no TensorBoard files (the writer does its own
+  I/O), and the log says so."""
+  path = io.localize(os.path.join(workdir, "tensorboard"))
   if SummaryWriter is None:
     return _NullWriter()
-  return SummaryWriter(os.path.join(workdir, "tensorboard"))
+  if "://" in path:
+    logging.warning("No TensorBoard files: %s has no local path.", path)
+    return _NullWriter()
+  return SummaryWriter(path)
 
 
 _META = -1       # the rolling checkpoint, where a number names a snapshot
@@ -66,13 +78,13 @@ def _resolve_number(workdir: str, checkpoint: int) -> int:
   one, else the rolling checkpoint (``_META``)."""
   if checkpoint >= 0:
     path = ckpt_lib.numbered_path(workdir, checkpoint)
-    if not os.path.isfile(path):
+    if not io.exists(path):
       raise FileNotFoundError(f"checkpoint_{checkpoint} not found: {path}")
     return checkpoint
   latest = ckpt_lib.latest_numbered(workdir)
   if latest is not None:
     return latest
-  if os.path.isfile(ckpt_lib.meta_path(workdir)):
+  if io.exists(ckpt_lib.meta_path(workdir)):
     return _META
   raise FileNotFoundError(
       f"no checkpoint under {workdir} (checkpoints/checkpoint_N.pth or "
@@ -122,7 +134,7 @@ def sample(config, workdir: str, sample_folder: str = "generated",
   main_rank = parallel.group_rank(group) == 0
   out_dir = os.path.join(workdir, sample_folder)
   if main_rank:
-    os.makedirs(out_dir, exist_ok=True)
+    io.makedirs(out_dir)
 
   model = mutils.create_model(config, device,
                               torch.Generator().manual_seed(config.seed))
@@ -153,8 +165,8 @@ def sample(config, workdir: str, sample_folder: str = "generated",
     samples_np = samples_np[:min(batch, num_samples - r * batch)]
     if main_rank:
       samples_u8 = np.clip(samples_np * 255.0, 0, 255).astype(np.uint8)
-      np.savez_compressed(os.path.join(out_dir, f"samples_{r}.npz"),
-                          samples=samples_u8)
+      io.save_npz(os.path.join(out_dir, f"samples_{r}.npz"),
+                  samples=samples_u8)
       nrow = int(np.ceil(np.sqrt(samples_np.shape[0])))
       save_image(make_grid(samples_np, nrow, padding=2),
                  os.path.join(out_dir, f"samples_{r}.png"))
@@ -205,6 +217,36 @@ def _skip(it, batches: int, name: str) -> None:
                time.perf_counter() - start)
 
 
+def _start_trace(device: torch.device):
+  """A running ``torch.profiler`` of the host and, on a card, its CUDA
+  activity."""
+  from torch.profiler import ProfilerActivity, profile
+  activities = [ProfilerActivity.CPU]
+  if device.type == "cuda":
+    activities.append(ProfilerActivity.CUDA)
+  profiler = profile(activities=activities)
+  profiler.start()
+  return profiler
+
+
+def _stop_trace(profiler, device: torch.device, workdir: str, rank: int,
+                first: int, last: int) -> None:
+  """Waits for the device, stops ``profiler`` and writes its Chrome trace
+  to ``workdir/profile/`` through ``utils.io``."""
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  profiler.stop()
+  name = f"steps_{first + 1}-{last}_rank{rank}.pt.trace.json"
+  path = os.path.join(workdir, "profile", name)
+  io.makedirs(os.path.dirname(path))
+  with tempfile.TemporaryDirectory() as tmp:
+    local = os.path.join(tmp, name)
+    profiler.export_chrome_trace(local)
+    with open(local, "rb") as src, io.open_file(path, "wb") as dst:
+      shutil.copyfileobj(src, dst)
+  logging.info("Wrote the trace of steps %d-%d to %s.", first + 1, last, path)
+
+
 def train(config, workdir: str, device: str = "cuda") -> dict:
   """Train loop (JAX run_lib.py:66-248).
 
@@ -230,6 +272,14 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
   samples (JAX :145-156). Dropout's default generators are seeded
   ``seed + rank``.
 
+  ``training.trace_steps = k > 0`` (JAX :161-169, :193-197) runs the first
+  ``k`` steps after the start or resume under ``torch.profiler`` (with the
+  card's activity on CUDA) and writes each rank's Chrome trace to
+  ``workdir/profile/steps_<a>-<b>_rank<r>.pt.trace.json``, the device
+  synchronized before the profiler stops. The JAX package's trace server,
+  ``training.profiler_port``, has no PyTorch counterpart: a nonzero value
+  raises.
+
   Returns ``{"initial_step", "step", "train_losses", "eval_losses"}``, the
   losses as ``(step, value)`` pairs of the logged values."""
   device = torch.device(device)
@@ -237,15 +287,20 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
   world, rank = parallel.group_size(group), parallel.group_rank(group)
   parallel.check_data_axis(config, world)
   tcfg = config.training
+  if tcfg.get("profiler_port", 0):
+    raise ValueError(
+        f"training.profiler_port={tcfg.profiler_port}: the JAX package's "
+        "trace server has no PyTorch counterpart; set training.trace_steps "
+        "to write a trace of the first steps to workdir/profile")
   if tcfg.batch_size % world:
     raise ValueError(f"training.batch_size ({tcfg.batch_size}) must be "
                      f"divisible by the number of ranks ({world})")
   main_rank = rank == 0
-  os.makedirs(workdir, exist_ok=True)
+  io.makedirs(workdir)
   writer = _writer(workdir) if main_rank else _NullWriter()
   sample_dir = os.path.join(workdir, "samples")
   if main_rank:
-    os.makedirs(sample_dir, exist_ok=True)
+    io.makedirs(sample_dir)
 
   torch.manual_seed(config.seed + rank)  # dropout's default generators
   model = mutils.create_model(config, device,
@@ -258,7 +313,7 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
         model, device,
         find_unused_parameters=not config.model.get("conditional", True))
   meta = ckpt_lib.meta_path(workdir)
-  if os.path.isfile(meta):
+  if io.exists(meta):
     ckpt_lib.restore_train_state(meta, state, group)
   initial_step = state["step"]
 
@@ -295,11 +350,17 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
 
   logging.info("Starting training loop at step %d.", initial_step)
   step = initial_step
+  trace_steps = tcfg.get("trace_steps", 0)
+  profiler = (_start_trace(device) if trace_steps > 0
+              and step < tcfg.n_iters else None)
   t_last = time.time()
   train_losses, eval_losses = [], []
   while step < tcfg.n_iters:
     loss = train_step(state, next_batches(train_iter), state["generator"])
     step += n_jitted
+    if profiler is not None and step - initial_step >= trace_steps:
+      _stop_trace(profiler, device, workdir, rank, initial_step, step)
+      profiler = None
 
     if step % tcfg.log_freq < n_jitted:
       loss_val = float(loss.mean())
@@ -337,13 +398,15 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
         finally:
           ema.restore(model.parameters())
         this_dir = os.path.join(sample_dir, f"iter_{step}")
-        os.makedirs(this_dir, exist_ok=True)
+        io.makedirs(this_dir)
         samples_np = samples.cpu().numpy()
-        with open(os.path.join(this_dir, "sample.np"), "wb") as fout:
+        with io.open_file(os.path.join(this_dir, "sample.np"), "wb") as fout:
           np.save(fout, samples_np)  # the reference's file name, no .npy
         nrow = int(np.sqrt(samples_np.shape[0]))
         save_image(make_grid(samples_np, nrow, padding=2),
                    os.path.join(this_dir, "sample.png"))
+  if profiler is not None:  # the run ended inside the window
+    _stop_trace(profiler, device, workdir, rank, initial_step, step)
   writer.flush()
   return {"initial_step": initial_step, "step": step,
           "train_losses": train_losses, "eval_losses": eval_losses}
@@ -444,7 +507,7 @@ def evaluate(config, workdir: str, eval_folder: str = "eval",
   main_rank = parallel.group_rank(group) == 0
   eval_dir = os.path.join(workdir, eval_folder)
   if main_rank:
-    os.makedirs(eval_dir, exist_ok=True)
+    io.makedirs(eval_dir)
 
   model = mutils.create_model(config, device,
                               torch.Generator().manual_seed(config.seed))
@@ -500,7 +563,7 @@ def evaluate(config, workdir: str, eval_folder: str = "eval",
                                     generator))
                     for b in _passes(eval_iter, 1, group)]
       if main_rank:
-        np.savez_compressed(
+        io.save_npz(
             os.path.join(eval_dir, f"ckpt_{ckpt}_loss.npz"),
             all_losses=np.asarray(all_losses), mean_loss=np.mean(all_losses))
       record["mean_loss"] = float(np.mean(all_losses))
@@ -520,7 +583,7 @@ def evaluate(config, workdir: str, eval_folder: str = "eval",
         record["bpd_seconds"].append(seconds)
       bpds = np.concatenate(bpds)
       if main_rank:
-        np.savez_compressed(
+        io.save_npz(
             os.path.join(eval_dir,
                          f"{ecfg.bpd_dataset}_ckpt_{ckpt}_bpd.npz"),
             bpd=bpds.astype(np.float64))  # the JAX package saves a float list
@@ -551,14 +614,14 @@ def evaluate(config, workdir: str, eval_folder: str = "eval",
         if not main_rank:
           continue
         samples_u8 = np.clip(samples_np * 255.0, 0, 255).astype(np.uint8)
-        np.savez_compressed(
+        io.save_npz(
             os.path.join(eval_dir, f"ckpt_{ckpt}_samples_{r}.npz"),
             samples=samples_u8)
         stats, seconds = _timed(device, evaluation.run_inception, samples_u8,
                                 config, device)
         if stats is not None:
           record["inception_seconds"].append(seconds)
-          np.savez_compressed(
+          io.save_npz(
               os.path.join(eval_dir, f"ckpt_{ckpt}_statistics_{r}.npz"),
               **stats)
           all_pools.append(stats["pool_3"])
@@ -569,8 +632,7 @@ def evaluate(config, workdir: str, eval_folder: str = "eval",
             np.concatenate(all_pools), config,
             logits=np.concatenate(all_logits) if all_logits else None,
             device=device)
-        np.savez_compressed(os.path.join(eval_dir, f"report_{ckpt}.npz"),
-                            **scores)
+        io.save_npz(os.path.join(eval_dir, f"report_{ckpt}.npz"), **scores)
         record["scores"] = scores
         logging.info("ckpt %d: %s", ckpt, scores)
     records.append(record)

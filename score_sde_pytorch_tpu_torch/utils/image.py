@@ -1,7 +1,8 @@
 """Image grids and PNG files of samples (numpy and PIL).
 
 Copy of score_sde_pytorch_tpu/utils/image.py, so that the port imports
-nothing of the JAX package; files are written with ``open`` (local paths).
+nothing of the JAX package; files are written through ``utils.io``, so a
+path may be a URI of a registered scheme.
 """
 from __future__ import annotations
 
@@ -26,10 +27,11 @@ def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
 
 
 def save_image(image: np.ndarray, path: str) -> None:
-  """Save a [H,W,C] float image in [0,1] as PNG."""
+  """Save a [H,W,C] float image in [0,1] as PNG (cloud-URI transparent)."""
   from PIL import Image
+  from score_sde_pytorch_tpu_torch.utils import io as io_utils
   arr = np.clip(np.asarray(image) * 255.0, 0, 255).astype(np.uint8)
   if arr.shape[-1] == 1:
     arr = arr[..., 0]
-  with open(path, "wb") as f:
+  with io_utils.open_file(path, "wb") as f:
     Image.fromarray(arr).save(f, format="PNG")

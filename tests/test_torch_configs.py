@@ -1,6 +1,7 @@
 """Every config file the port runs, built at full width on the CPU.
 
-Each of the 44 leaf configs builds its model; its state_dict keys and
+Each of the 46 leaf configs (the JAX package's 44 and the port's two H100
+leaves) builds its model; its state_dict keys and
 shapes equal the JAX package's parameter map of the flax model's
 (abstract) parameters (the port's own map for NCSN v1, which the JAX
 package has none of), so ``flax_params_to_torch_state_dict`` loads the
@@ -50,13 +51,21 @@ ATTENTION = {
                                                 (1024, 256)],
     "vp/ddpm/church.py": [(256, 512)] * 2 + [(64, 512), (256, 512)],
     "ve/celebahq_ncsnpp_continuous.py": [(256, 512), (64, 512), (256, 512)],
+    "h100/church_256_ncsnpp_h100.py": [(256, 256)] * 2 + [(16, 256),
+                                                          (256, 256)],
+    "h100/celebahq_1024_ncsnpp_h100.py": [(256, 512), (64, 512), (256, 512)],
 }
+# The port's own leaves and the JAX package's variants they re-tune.
+H100 = {"h100/church_256_ncsnpp_h100.py": "tpu/church_256_ncsnpp_tpu.py",
+        "h100/celebahq_1024_ncsnpp_h100.py": "tpu/celebahq_1024_ncsnpp_tpu.py"}
 
 
 def test_the_runnable_configs_are_the_readmes_31():
-  """All 44 leaf files run: the README's 31, the 11 NCSN and NCSNv2 files
-  and the two bf16 files."""
-  assert len(LEAVES) == len(RUNNABLE) == 44
+  """All 46 leaf files run: the README's 31, the 11 NCSN and NCSNv2 files,
+  the two bf16 files and the port's two H100 leaves."""
+  assert len(LEAVES) == len(RUNNABLE) == 46
+  assert sorted(rel for rel in LEAVES if rel.startswith("h100/")) == sorted(
+      H100)
   assert len(REFINENET) == 11
   assert all(configs.load_config(str(configs.CONFIG_DIR / rel)).model.dtype
              == "bfloat16" for rel in BF16)
@@ -150,3 +159,29 @@ def test_full_width_256_ddpm_forward_on_cpu():
     out = model(x, torch.tensor([500]))
   assert seen == [(1, 256, 512)] * 2 + [(1, 64, 512), (1, 256, 512)]
   assert out.shape == x.shape and torch.isfinite(out).all()
+
+
+def _fields(config) -> dict:
+  if hasattr(config, "to_dict"):
+    return config.to_dict()
+  return {k: _fields(v) if isinstance(v, configs.ConfigDict) else v
+          for k, v in object.__getattribute__(config, "_fields").items()}
+
+
+@pytest.mark.parametrize("rel", sorted(H100))
+def test_h100_leaf_keeps_the_tpu_variants_model_and_sde(rel):
+  """The same architecture, SDE, data and eval settings as the JAX
+  package's variant; only the batch, remat and dtype differ (chosen on the
+  card, fp32 without remat), and ``spatial_sharding`` left at the base's
+  False."""
+  got = _fields(configs.load_config(str(configs.CONFIG_DIR / rel)))
+  want = _fields(configs.load_config(str(configs.CONFIG_DIR / H100[rel])))
+  assert want["model"].pop("spatial_sharding") is True
+  assert got["model"].pop("spatial_sharding") is False
+  assert (got["model"].pop("dtype"), got["model"].pop("remat")) == (
+      "float32", False)
+  assert (want["model"].pop("dtype"), want["model"].pop("remat")) == (
+      "bfloat16", True)
+  assert got["training"].pop("batch_size") > 0
+  want["training"].pop("batch_size")
+  assert got == want

@@ -2,10 +2,13 @@
 
 The port imports nothing of the JAX package, so it carries copies of what
 it reads: the config tree, the data pipeline, the NCSN++ parameter map,
-the image grid and the C++ data loader's source. Each is held to its original here, on the
+the image grid, the C++ data loader's source, the URI helpers of
+``utils/io.py`` and the Inception weight converter. Each is held to its original here, on the
 CPU: config dicts key for key, batches bit for bit (including the skip a
-resumed run makes), parameter maps row for row.
+resumed run makes), parameter maps row for row, functions statement for
+statement. The config leaves under ``h100/`` are the port's own.
 """
+import ast
 import importlib
 import os
 import pickle
@@ -19,6 +22,7 @@ from score_sde_pytorch_tpu import interop as jax_interop
 from score_sde_pytorch_tpu.utils import image as jax_image
 from score_sde_pytorch_tpu_torch import configs, datasets, interop
 from score_sde_pytorch_tpu_torch.utils import image
+from score_sde_pytorch_tpu_torch.utils import io as io_utils
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_CONFIGS = ROOT / "score_sde_pytorch_tpu" / "configs"
@@ -26,6 +30,7 @@ NOT_LEAVES = {"__init__.py", "builder.py", "default_cifar10_configs.py",
               "default_celeba_configs.py", "default_lsun_configs.py"}
 LEAVES = sorted(str(p.relative_to(JAX_CONFIGS))
                 for p in JAX_CONFIGS.rglob("*.py") if p.name not in NOT_LEAVES)
+PORT_ONLY = "h100"  # the port's own leaves, chosen on an H100
 FLAGSHIP = "score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py"
 DDPM_CONFIG = "score_sde_pytorch_tpu_torch/configs/vp/ddpm/cifar10.py"
 DDPM_UNCONDITIONAL = (
@@ -51,7 +56,8 @@ def jax_config(rel: str):
 def test_the_port_copies_every_config_file():
   port = sorted(str(p.relative_to(configs.CONFIG_DIR))
                 for p in configs.CONFIG_DIR.rglob("*.py")
-                if p.name not in NOT_LEAVES)
+                if p.name not in NOT_LEAVES
+                and p.relative_to(configs.CONFIG_DIR).parts[0] != PORT_ONLY)
   assert port == LEAVES
   assert len(LEAVES) > 40
 
@@ -311,3 +317,44 @@ def test_image_grid_and_png_equal_the_jax_packages(tmp_path):
   jax_image.save_image(grid, str(tmp_path / "jax.png"))
   assert (tmp_path / "port.png").read_bytes() == (
       tmp_path / "jax.png").read_bytes()
+
+
+def _definitions(path: Path) -> dict:
+  """The module's top-level functions and classes by name, as AST dumps
+  without their docstrings (which name each package)."""
+  out = {}
+  for node in ast.parse(path.read_text()).body:
+    if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+      for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if (isinstance(sub, (ast.FunctionDef, ast.ClassDef)) and body
+            and isinstance(body[0], ast.Expr)
+            and isinstance(body[0].value, ast.Constant)
+            and isinstance(body[0].value.value, str)):
+          sub.body = body[1:]
+      out[node.name] = ast.dump(node)
+  return out
+
+
+# The JAX package's utils/io.py but for GFileHandler (TensorFlow) and
+# _handler, which raises on a scheme without a handler where the JAX one
+# takes GFileHandler.
+IO_COPIED = ["_scheme", "LocalMirrorHandler", "register_scheme",
+             "unregister_scheme", "makedirs", "open_file", "exists",
+             "listdir", "localize", "save_npz", "save_npy", "load_npz"]
+
+
+@pytest.mark.parametrize("name", IO_COPIED)
+def test_io_copy_equals_the_jax_packages(name):
+  port = _definitions(Path(io_utils.__file__))
+  jax = _definitions(ROOT / "score_sde_pytorch_tpu" / "utils" / "io.py")
+  assert port[name] == jax[name]
+  assert set(port) == set(IO_COPIED) | {"_handler"}
+  assert set(jax) - set(port) == {"GFileHandler"}
+
+
+def test_inception_weight_converter_equals_the_jax_tool():
+  port = _definitions(ROOT / "score_sde_pytorch_tpu_torch" / "tools"
+                      / "convert_inception_weights.py")
+  jax = _definitions(ROOT / "tools" / "convert_inception_weights.py")
+  assert port == jax and list(port) == ["main"]

@@ -56,6 +56,15 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.parallel.distributed",
     "score_sde_pytorch_tpu_torch.run_lib",
     "score_sde_pytorch_tpu_torch.main",
+    "score_sde_pytorch_tpu_torch.utils.io",
+    "score_sde_pytorch_tpu_torch.debug",
+    "score_sde_pytorch_tpu_torch.demo",
+    "score_sde_pytorch_tpu_torch.tools",
+    "score_sde_pytorch_tpu_torch.tools.compute_dataset_stats",
+    "score_sde_pytorch_tpu_torch.tools.convert_inception_weights",
+    "score_sde_pytorch_tpu_torch.tools.train_step_grid",
+    "score_sde_pytorch_tpu_torch.configs.h100.church_256_ncsnpp_h100",
+    "score_sde_pytorch_tpu_torch.configs.h100.celebahq_1024_ncsnpp_h100",
 ]
 BLOCK = "import sys\nfor _m in {!r}: sys.modules[_m] = None\n"
 JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "orbax", "score_sde_pytorch_tpu")
