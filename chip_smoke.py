@@ -6,7 +6,7 @@ NVIDIA GPU. Run it from the root of a checkout:
 
 It needs a CUDA device, the CUDA toolkit (nvcc) and g++, and imports
 nothing of JAX, of the JAX package or of TensorFlow. Phases, each of which
-fails the run if it fails (about 17 minutes on one H100):
+fails the run if it fails (about 17 to 19 minutes on one H100):
 
 1. the card's name and power limit; the kernels built from
    score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
@@ -35,6 +35,14 @@ fails the run if it fails (about 17 minutes on one H100):
 6. [grad] one loss of that model (injected t and z) and its parameter
    gradients through the kernels against through the plain attention, and
    the loss against the CPU's;
+6a. [learn] (PyTorch's default TF32 settings from here on): the
+   gaussian learning proof of score_sde_pytorch_tpu_torch/tools/
+   learning_proof.py cut to 500 of its 3000 steps: the flagship at full
+   width and batch 128 trained on N(0.5, 0.2²) pixels by the tool's own
+   functions, the last 10 losses' mean under half the first step's, the
+   EMA score's rel-L2 against the closed form at t = 0.5 and 0.9 under
+   1.5 x the full run's at step 500, and 6 forward and 6 backward
+   attention calls per train step;
 7. [sample] the user's entry point: a reference-schema checkpoint of that
    model in a temporary workdir, then ``main --mode sample`` in process at
    full width (num_scales cut to 50), the samples checked, and the count
@@ -319,6 +327,15 @@ URI_SCALES = 10              # [uri] snapshot and sample: 20 NFE
 DEMO_SCALES = 50             # [demo]: PC, inpainting, colorization 100 NFE
 STATS_TOL = 1e-5             # [stats]: mu and sigma against run_inception's
 LEAF_STEPS = 2               # [h100-leaves] timed steps after one warm-up
+# [learn]: the gaussian learning proof (tools/learning_proof.py) cut to
+# LEARN_STEPS of its 3000 steps. Its full fp32 run on one H100 80GB HBM3 at
+# 700 W took 213.16 ms/step; its loss was 0.467 of the first step's at step
+# 500 and its EMA score's rel-L2 at t = 0.5 and 0.9 was 0.4468 and 0.5288
+# there (1.0 untrained, 0.0184 and 0.0215 at step 3000). The bounds are
+# 1.5 x those two values.
+LEARN_STEPS = 500
+LEARN_LOSS_SHARE = 0.5       # the last 10 losses' mean under 0.5 x the first
+LEARN_REL_BOUND = {"0.5": 1.5 * 0.4468, "0.9": 1.5 * 0.5288}
 H100_LEAVES = [
     (os.path.join(CONFIGS, "h100", "church_256_ncsnpp_h100.py"),
      HIRES_ATTN_PER_FORWARD),
@@ -2881,6 +2898,41 @@ def phase_data_native(data_root: str, card_line: str) -> None:
 # runs use gloo with both ranks on cuda:0.
 
 
+def phase_learn(torch, attn, card_line: str) -> tuple:
+  """[learn]: the full-width flagship trained by the learning proof's own
+  functions at batch 128 for LEARN_STEPS steps on N(0.5, 0.2²) pixels
+  (PyTorch's default TF32 settings): the last 10 losses' mean under
+  LEARN_LOSS_SHARE x the first step's, the EMA score's rel-L2 against the
+  closed form at t = 0.5 and 0.9 under LEARN_REL_BOUND, and 6 forward
+  launches and 6 backward calls per train step (as [train]) and 6
+  launches per score evaluation. Returns the launch counts."""
+  from score_sde_pytorch_tpu_torch.tools import learning_proof as lp
+  config = lp.load_config(tiny=False, dtype="float32", seed=lp.SEED)
+  proof = lp.Proof(config, "gaussian", "cuda", lp.FULL)
+  _reset(attn)
+  result = lp.train(proof, LEARN_STEPS // lp.N_INNER, probe_every=0)
+  trained = _counts(attn)
+  rel = proof.score_rel_err(lp.PROBE_TIMES, seed=42)
+  counts = _counts(attn)
+  share = result["loss_curve"][-1] / result["first_step_loss"]
+  say(f"[learn] {LEARN_STEPS} steps at batch {proof.sizes['batch']}: "
+      f"{result['train_s']} s, {result['ms_per_step']} ms/step; first-step "
+      f"loss {result['first_step_loss']}, the last 10 steps' mean "
+      f"{result['loss_curve'][-1]} ({share:.3f} of it, bound "
+      f"{LEARN_LOSS_SHARE}); EMA score rel-L2 {rel} (bounds "
+      f"{LEARN_REL_BOUND}); launches {counts} ({card_line})")
+  check(share < LEARN_LOSS_SHARE, f"[learn] loss share {share:.3f}")
+  for t, bound in LEARN_REL_BOUND.items():
+    check(rel[t] < bound, f"[learn] rel-L2 {rel[t]} at t = {t}")
+  want = ATTN_PER_FORWARD * LEARN_STEPS
+  check(trained == {"forward": want, "backward": want},
+        f"[learn] launches {trained} in {LEARN_STEPS} train steps")
+  check(counts["forward"] - want == ATTN_PER_FORWARD * len(rel)
+        and counts["backward"] == want,
+        f"[learn] launches {counts} with {len(rel)} score evaluations")
+  return counts["forward"], counts["backward"]
+
+
 def _counts(attn) -> dict:
   return {"forward": attn.flash_attention_launches,
           "backward": attn.flash_attention_backward_launches}
@@ -3482,6 +3534,8 @@ def main() -> int:
   # Sampling, training and evaluation run as a user runs them: PyTorch's
   # default TF32 settings.
   _tf32_restore(torch, defaults)
+  learn = phase_learn(torch, attn, card_line)
+  lap("[learn]")
   launches = phase_sample(torch, attn, config, model, card_line)
   attn.flash_attention_launches = 0
   phase_sample_profile(torch, model, card_line)
@@ -3560,12 +3614,12 @@ def main() -> int:
        + vp_eval[0] + ddpm_sample + samplers + ddpm256[0] + hires[0]
        + hires_1024[0] + bf16_church[0] + bf16_1024[0]
        + sum(d[0] for d in data) + sum(d[0] for d in ddp) + uri[0] + demo[0]
-       + debug_fwd + leaves[0], record),
+       + debug_fwd + leaves[0] + learn[0], record),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
        train_bwd + eval_bwd + vp_train[1] + vp_eval[1] + ddpm256[1]
        + hires[1] + hires_1024[1] + bf16_church[1] + bf16_1024[1]
        + sum(d[1] for d in data) + sum(d[1] for d in ddp) + uri[1] + demo[1]
-       + leaves[1], record_bwd),
+       + leaves[1] + learn[1], record_bwd),
       # On no model's path: the sample, train and eval runs launch it 0
       # times.
       ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],

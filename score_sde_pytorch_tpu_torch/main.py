@@ -59,6 +59,16 @@ def _device(value: str) -> str:
   return value
 
 
+def require_device(value: str) -> torch.device:
+  """The device of ``--device``; a CUDA device on a machine where torch sees
+  no card raises: there is no silent CPU fallback."""
+  device = torch.device(value)
+  if device.type == "cuda" and not torch.cuda.is_available():
+    raise RuntimeError(f"--device {value}, but torch sees no CUDA "
+                       "device; pass --device cpu to run on the CPU")
+  return device
+
+
 def split_overrides(argv: Sequence[str]) -> tuple:
   """``(overrides, rest)``: the ``--config.a.b=value`` arguments without
   their prefix, and the others."""
@@ -99,10 +109,7 @@ def main(argv: Optional[Sequence[str]] = None):
   mode's pipeline returns (for ``train``, the logged losses; for ``eval``,
   the per-checkpoint records; for ``sample``, the per-round records)."""
   args, overrides = parse_args(sys.argv[1:] if argv is None else list(argv))
-  device = torch.device(args.device)
-  if device.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError(f"--device {args.device}, but torch sees no CUDA "
-                       "device; pass --device cpu to run on the CPU")
+  device = require_device(args.device)
   distributed = parallel.launched()
   if distributed:
     if device.type == "cuda" and device.index is None:

@@ -358,3 +358,83 @@ def test_inception_weight_converter_equals_the_jax_tool():
                       / "convert_inception_weights.py")
   jax = _definitions(ROOT / "tools" / "convert_inception_weights.py")
   assert port == jax and list(port) == ["main"]
+
+
+# The learning tools' functions that the port keeps its own copies of: the
+# closed-form mixture score and the mode statistics of
+# tools/learning_proof_mixture_tpu.py, and the dataset and entropy bound of
+# tools/bpd_rehearsal_tpu.py.
+TOOL_COPIES = [
+    ("learning_proof.py", "learning_proof_mixture_tpu.py", "analytic_score"),
+    ("learning_proof.py", "learning_proof_mixture_tpu.py", "mode_stats"),
+    ("bpd_rehearsal.py", "bpd_rehearsal_tpu.py", "analytic_bpd_bound"),
+    ("bpd_rehearsal.py", "bpd_rehearsal_tpu.py", "make_dataset"),
+]
+PORT_TOOLS = ROOT / "score_sde_pytorch_tpu_torch" / "tools"
+
+
+@pytest.mark.parametrize("port,jax,name", TOOL_COPIES)
+def test_learning_tool_copies_equal_the_jax_tools(port, jax, name):
+  assert (_definitions(PORT_TOOLS / port)[name]
+          == _definitions(ROOT / "tools" / jax)[name])
+
+
+def _module_constants(path: Path) -> dict:
+  """The module's top-level ``NAME = literal`` and ``A, B = x, y``."""
+  out = {}
+  for node in ast.parse(path.read_text()).body:
+    if isinstance(node, ast.Assign) and len(node.targets) == 1:
+      target = node.targets[0]
+      names = ([target] if isinstance(target, ast.Name)
+               else getattr(target, "elts", []))
+      try:
+        values = ast.literal_eval(node.value)
+      except ValueError:
+        continue
+      if isinstance(target, ast.Name):
+        values = (values,)
+      for n, v in zip(names, values):
+        out[n.id] = v
+  return out
+
+
+def test_learning_tool_constants_equal_the_jax_tools():
+  """The globals the copied functions read, and the tasks' data."""
+  from score_sde_pytorch_tpu_torch.tools import learning_proof
+  mixture = _module_constants(ROOT / "tools" / "learning_proof_mixture_tpu.py")
+  gaussian = _module_constants(ROOT / "tools" / "learning_proof_tpu.py")
+  assert (learning_proof.MU0, learning_proof.MU1,
+          learning_proof.MIX_SIGMA_D) == (mixture["MU0"], mixture["MU1"],
+                                          mixture["SIGMA_D"])
+  assert (learning_proof.MU, learning_proof.SIGMA_D) == (gaussian["MU"],
+                                                         gaussian["SIGMA_D"])
+  assert learning_proof.N_INNER == gaussian["N_INNER"] == mixture["N_INNER"]
+  assert learning_proof.FULL["batch"] == gaussian["BATCH"] == mixture["BATCH"]
+
+
+def _jax_make_dataset():
+  """tools/bpd_rehearsal_tpu.py's ``make_dataset``, compiled from its
+  source alone (importing the tool would define its absl flags)."""
+  path = ROOT / "tools" / "bpd_rehearsal_tpu.py"
+  node = next(n for n in ast.parse(path.read_text()).body
+              if isinstance(n, ast.FunctionDef) and n.name == "make_dataset")
+  namespace = {"np": np, "os": os}
+  exec(compile(ast.Module(body=[node], type_ignores=[]), str(path), "exec"),
+       namespace)
+  return namespace["make_dataset"]
+
+
+def test_bpd_dataset_files_equal_the_jax_tools(tmp_path, monkeypatch):
+  """Byte for byte, with the zip members' timestamp pinned (``np.savez``
+  stamps each member with the time it was written)."""
+  from score_sde_pytorch_tpu_torch.tools import bpd_rehearsal
+  import time
+  monkeypatch.setattr(time, "time", lambda: 1.7e9)
+  bpd_rehearsal.make_dataset(str(tmp_path / "port"), size=8, n_train=16,
+                             n_test=8)
+  _jax_make_dataset()(str(tmp_path / "jax"), size=8, n_train=16, n_test=8)
+  for split in ("train.npz", "test.npz"):
+    port = (tmp_path / "port" / split).read_bytes()
+    assert port == (tmp_path / "jax" / split).read_bytes(), split
+  with np.load(tmp_path / "port" / "test.npz") as z:
+    assert z["images"].dtype == np.uint8 and z["images"].shape == (8, 8, 8, 3)

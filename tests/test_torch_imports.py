@@ -63,6 +63,8 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.tools.compute_dataset_stats",
     "score_sde_pytorch_tpu_torch.tools.convert_inception_weights",
     "score_sde_pytorch_tpu_torch.tools.train_step_grid",
+    "score_sde_pytorch_tpu_torch.tools.learning_proof",
+    "score_sde_pytorch_tpu_torch.tools.bpd_rehearsal",
     "score_sde_pytorch_tpu_torch.configs.h100.church_256_ncsnpp_h100",
     "score_sde_pytorch_tpu_torch.configs.h100.celebahq_1024_ncsnpp_h100",
 ]
@@ -88,6 +90,28 @@ def test_main_path_imports_with_jax_blocked():
       assert not leaked, leaked
       print('ok')
       """))
+  assert out.strip().endswith("ok")
+
+
+def test_learning_tools_run_with_jax_and_the_jax_tools_blocked(tmp_path):
+  """Both learning tools import nothing of JAX, of the JAX package or of
+  the repository's ``tools/`` (the JAX package's tools): one tiny call of
+  each learning proof, and the bits/dim tool's dataset and bound."""
+  out = run_child(textwrap.dedent(f"""
+      from score_sde_pytorch_tpu_torch.tools import bpd_rehearsal
+      from score_sde_pytorch_tpu_torch.tools import learning_proof
+      for task in ("gaussian", "mixture"):
+        out = learning_proof.main(["--task", task, "--device", "cpu",
+                                   "--tiny", "--n_outer", "1"])
+        assert out["steps"] == 10, out
+      bpd_rehearsal.make_dataset({str(tmp_path)!r}, size=8, n_train=4,
+                                 n_test=4)
+      assert round(bpd_rehearsal.analytic_bpd_bound(), 4) == 7.6495
+      leaked = [m for m, v in sys.modules.items() if v is not None
+                and m.split('.')[0] in {JAX_NAMES + ("tools",)!r}]
+      assert not leaked, leaked
+      print('ok')
+      """), blocked=JAX_NAMES + ("tools",), OMP_NUM_THREADS=1)
   assert out.strip().endswith("ok")
 
 
