@@ -42,6 +42,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 
 from score_sde_pytorch_tpu_torch import native, tfrecord
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 Array = np.ndarray
 BACKENDS = ("auto", "native", "python")
@@ -354,7 +355,8 @@ def _advance(rng, n: int) -> None:
 class _Prefetcher:
   """Batches made ahead by a background thread, which starts at the first
   ``next``. An exception of the producer is raised by that ``next`` (and
-  every later one)."""
+  every later one). The wait for a batch is the ``data.next`` span and the
+  ``data.wait`` counter (``utils/tracing.py``)."""
 
   def __init__(self, it, depth: int = 2):
     self._it = it
@@ -382,7 +384,8 @@ class _Prefetcher:
     if self._thread is None:
       self._thread = threading.Thread(target=self._run, daemon=True)
       self._thread.start()
-    batch, error = self._q.get()
+    with tracing.counted("data.wait", "data.next"):
+      batch, error = self._q.get()
     if error is not None:
       self._error = error
       raise error

@@ -42,6 +42,7 @@ from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.models.ema import ExponentialMovingAverage
 from score_sde_pytorch_tpu_torch.parallel import spatial
 from score_sde_pytorch_tpu_torch.sde import batch_mul
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 _B2 = 0.999  # the JAX package and the reference fix Adam's beta2
 
@@ -371,6 +372,11 @@ def get_step_fn(sde: sde_lib.SDE, train: bool, optimize_fn=None,
   - eval: the loss at the EMA weights, without gradients and with dropout
     off; the model's own weights are put back and ``state`` is unchanged.
 
+  The train step is counted and spanned as ``train.step`` (its step count
+  the span's args) with ``train.loss``, ``train.backward``,
+  ``train.optimize`` and ``train.ema`` inside, the eval step as
+  ``eval.step`` (``utils/tracing.py``).
+
   With a process ``group``, ``batch`` is the rank's rows of the global
   batch and the loss returned is the mean over the ranks (JAX's replicated
   scalar). With a ``space_group`` (of more than one rank) as well,
@@ -394,30 +400,35 @@ def get_step_fn(sde: sde_lib.SDE, train: bool, optimize_fn=None,
       raise ValueError("a train step needs optimize_fn")
 
     def step_fn(state, batch, generator):
-      model, optimizer = state["model"], state["optimizer"]
-      check_split(model)
-      optimizer.zero_grad(set_to_none=True)
-      with spatial.sharded(space_group):
-        loss = loss_fn(state["forward"], batch, generator)
-      loss.backward()
-      optimize_fn(optimizer, model.parameters(), step=state["step"])
-      state["step"] += 1
-      state["ema"].update(model.parameters())
-      return parallel.all_reduce_mean(loss.detach(), group)
+      with tracing.counted("train.step", args=state["step"]):
+        model, optimizer = state["model"], state["optimizer"]
+        check_split(model)
+        optimizer.zero_grad(set_to_none=True)
+        with tracing.counted("train.loss"), spatial.sharded(space_group):
+          loss = loss_fn(state["forward"], batch, generator)
+        with tracing.counted("train.backward"):
+          loss.backward()
+        with tracing.counted("train.optimize"):
+          optimize_fn(optimizer, model.parameters(), step=state["step"])
+        state["step"] += 1
+        with tracing.counted("train.ema"):
+          state["ema"].update(model.parameters())
+        return parallel.all_reduce_mean(loss.detach(), group)
 
   else:
 
     def step_fn(state, batch, generator):
-      model, ema = state["model"], state["ema"]
-      check_split(model)
-      with torch.no_grad(), spatial.sharded(space_group):
-        ema.store(model.parameters())
-        ema.copy_to(model.parameters())
-        try:
-          loss = loss_fn(model, batch, generator)
-        finally:
-          ema.restore(model.parameters())
-      return parallel.all_reduce_mean(loss, group)
+      with tracing.counted("eval.step"):
+        model, ema = state["model"], state["ema"]
+        check_split(model)
+        with torch.no_grad(), spatial.sharded(space_group):
+          ema.store(model.parameters())
+          ema.copy_to(model.parameters())
+          try:
+            loss = loss_fn(model, batch, generator)
+          finally:
+            ema.restore(model.parameters())
+        return parallel.all_reduce_mean(loss, group)
 
   return step_fn
 

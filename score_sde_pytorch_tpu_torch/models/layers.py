@@ -39,6 +39,7 @@ from torch import nn
 
 from score_sde_pytorch_tpu_torch.ops import attention as attention_ops
 from score_sde_pytorch_tpu_torch.parallel import distributed, spatial
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 
 def _swish(x: torch.Tensor) -> torch.Tensor:
@@ -261,6 +262,15 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
   return emb
 
 
+def norm_act(norm: nn.Module, x: torch.Tensor,
+             act: Optional[Callable] = None) -> torch.Tensor:
+  """``act(norm(x))``, or ``norm(x)`` without ``act``, as the
+  ``op.norm_act`` span (``utils/tracing.py``)."""
+  with tracing.span("op.norm_act"):
+    h = norm(x)
+    return h if act is None else act(h)
+
+
 class GroupNorm(nn.Module):
   """GroupNorm with fp32 statistics and a clamped variance.
 
@@ -355,7 +365,8 @@ class AttnBlock(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
-    hid = self.GroupNorm_0(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+    hid = norm_act(self.GroupNorm_0, x).permute(0, 2, 3, 1).reshape(
+        b, h * w, c)
     group = spatial.group()
     out = attention_ops.attention(self.NIN_0(hid),
                                   spatial.gather(self.NIN_1(hid), group, 1),

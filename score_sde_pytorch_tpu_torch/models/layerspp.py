@@ -253,13 +253,13 @@ class ResnetBlockBigGANpp(nn.Module):
 
   def forward(self, x: torch.Tensor,
               temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = self.act(self.GroupNorm_0(x))
+    h = layers.norm_act(self.GroupNorm_0, x, self.act)
     h = self._resample(h)
     x = self._resample(x)
     h = self.Conv_0(h)
     if temb is not None:
       h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-    h = self.act(self.GroupNorm_1(h))
+    h = layers.norm_act(self.GroupNorm_1, h, self.act)
     h = self.Dropout_0(h)
     h = self.Conv_1(h)
     if self.has_shortcut:
@@ -305,10 +305,10 @@ class ResnetBlockDDPMpp(nn.Module):
 
   def forward(self, x: torch.Tensor,
               temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = self.Conv_0(self.act(self.GroupNorm_0(x)))
+    h = self.Conv_0(layers.norm_act(self.GroupNorm_0, x, self.act))
     if temb is not None:
       h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-    h = self.Dropout_0(self.act(self.GroupNorm_1(h)))
+    h = self.Dropout_0(layers.norm_act(self.GroupNorm_1, h, self.act))
     h = self.Conv_1(h)
     if self.conv_shortcut:
       x = self.Conv_2(x)

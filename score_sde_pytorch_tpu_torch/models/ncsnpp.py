@@ -58,6 +58,7 @@ from torch.utils import checkpoint
 
 from score_sde_pytorch_tpu_torch.models import layers, layerspp, utils
 from score_sde_pytorch_tpu_torch.parallel import distributed, spatial
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -265,6 +266,10 @@ class NCSNpp(nn.Module):
       return self._forward(x, time_cond)
 
   def _forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
+    with tracing.span("ncsnpp.forward"):
+      return self._layers(x, time_cond)
+
+  def _layers(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
     modules = iter(self.all_modules)
     act = self.act
 
@@ -321,7 +326,8 @@ class NCSNpp(nn.Module):
       if h.shape[-1] in self.attn_resolutions:
         h = next(modules)(h)                         # up_{i}_attn
       if self.progressive == "output_skip":
-        pyramid_h = act(next(modules)(h))            # pyramid_norm_{i}
+        pyramid_h = layers.norm_act(next(modules), h,
+                                    act)             # pyramid_norm_{i}
         pyramid_h = next(modules)(pyramid_h)         # pyramid_conv_{i}
         if pyramid is None:
           pyramid = pyramid_h
@@ -329,7 +335,8 @@ class NCSNpp(nn.Module):
           pyramid = self.pyramid_upsample(pyramid) + pyramid_h
       elif self.progressive == "residual":
         if pyramid is None:
-          pyramid = act(next(modules)(h))            # pyramid_norm_{i}
+          pyramid = layers.norm_act(next(modules), h,
+                                    act)             # pyramid_norm_{i}
           pyramid = next(modules)(pyramid)           # pyramid_conv_{i}
         else:
           pyramid = next(modules)(pyramid).to(h.dtype)  # pyramid_upsample_{i}
@@ -348,7 +355,7 @@ class NCSNpp(nn.Module):
     if self.progressive == "output_skip":
       h = pyramid
     else:
-      h = act(next(modules)(h))                      # norm_out
+      h = layers.norm_act(next(modules), h, act)     # norm_out
       h = next(modules)(h)                           # conv_out
     assert next(modules, None) is None
 

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from score_sde_pytorch_tpu_torch.ops import build
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 # Kernel launches in this process: `_launch_flash_attention` adds one per
 # forward launch, `_launch_flash_attention_backward` one per backward call
@@ -210,10 +211,12 @@ def attention(q: torch.Tensor, k: torch.Tensor,
   output [B, N_q, C] in q's dtype.
 
   CPU tensors take :func:`dense_attention`, CUDA tensors the Hopper kernel.
-  Anything else raises."""
-  check_inputs(q, k, v)
-  if q.device.type == "cpu":
-    return dense_attention(q, k, v)
-  if q.device.type == "cuda":
-    return FlashAttention.apply(q, k, v)
-  raise ValueError(f"no attention path for device {q.device}")
+  Anything else raises. The call is the ``op.attention`` span
+  (``utils/tracing.py``)."""
+  with tracing.span("op.attention"):
+    check_inputs(q, k, v)
+    if q.device.type == "cpu":
+      return dense_attention(q, k, v)
+    if q.device.type == "cuda":
+      return FlashAttention.apply(q, k, v)
+    raise ValueError(f"no attention path for device {q.device}")

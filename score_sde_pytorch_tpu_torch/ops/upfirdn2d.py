@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from score_sde_pytorch_tpu_torch.parallel import distributed, spatial
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 KernelLike = Union[Sequence[float], np.ndarray]
 
@@ -76,17 +77,19 @@ def _filter(x, taps: np.ndarray, axis: int, stride: Tuple[int, int]):
 
 def _upfirdn(x: torch.Tensor, k: np.ndarray, up: int, down: int,
              pad_h: Tuple[int, int], pad_w: Tuple[int, int]) -> torch.Tensor:
-  """upfirdn with its own ``(lo, hi)`` pad on each axis."""
-  if k.ndim == 1:
-    x = _zero_insert(x, up, 2)
-    x = F.pad(x, (0, 0) + tuple(pad_h))
-    x = _filter(x, k, 2, (down, 1))
-    x = _zero_insert(x, up, 3)
-    x = F.pad(x, tuple(pad_w) + (0, 0))
-    return _filter(x, k, 3, (1, down))
-  x = _zero_insert(_zero_insert(x, up, 2), up, 3)
-  x = F.pad(x, tuple(pad_w) + tuple(pad_h))
-  return _filter(x, k, 0, (down, down))
+  """upfirdn with its own ``(lo, hi)`` pad on each axis, as the
+  ``op.fir`` span (``utils/tracing.py``): every FIR path runs through it."""
+  with tracing.span("op.fir"):
+    if k.ndim == 1:
+      x = _zero_insert(x, up, 2)
+      x = F.pad(x, (0, 0) + tuple(pad_h))
+      x = _filter(x, k, 2, (down, 1))
+      x = _zero_insert(x, up, 3)
+      x = F.pad(x, tuple(pad_w) + (0, 0))
+      return _filter(x, k, 3, (1, down))
+    x = _zero_insert(_zero_insert(x, up, 2), up, 3)
+    x = F.pad(x, tuple(pad_w) + tuple(pad_h))
+    return _filter(x, k, 0, (down, down))
 
 
 def _slab_rows(z0: int, z1: int, taps: int, up: int, down: int,

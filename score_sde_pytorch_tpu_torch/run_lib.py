@@ -28,7 +28,7 @@ from score_sde_pytorch_tpu_torch import native, parallel
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.models.ema import ExponentialMovingAverage
-from score_sde_pytorch_tpu_torch.utils import io
+from score_sde_pytorch_tpu_torch.utils import io, tracing
 from score_sde_pytorch_tpu_torch.utils.image import make_grid, save_image
 
 try:
@@ -247,6 +247,18 @@ def _stop_trace(profiler, device: torch.device, workdir: str, rank: int,
   logging.info("Wrote the trace of steps %d-%d to %s.", first + 1, last, path)
 
 
+def _host_ms_per_step(before: dict, after: dict) -> tuple:
+  """Host ms a train step spent in the step function, and waiting for the
+  input pipeline, between two snapshots of ``tracing.counters()``."""
+
+  def delta(name: str, key: str) -> float:
+    return after.get(name, {}).get(key, 0) - before.get(name, {}).get(key, 0)
+
+  steps = max(delta("train.step", "count"), 1)
+  return (1e3 * delta("train.step", "seconds") / steps,
+          1e3 * delta("data.wait", "seconds") / steps)
+
+
 def train(config, workdir: str, device: str = "cuda") -> dict:
   """Train loop (JAX run_lib.py:66-248).
 
@@ -276,9 +288,15 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
   ``k`` steps after the start or resume under ``torch.profiler`` (with the
   card's activity on CUDA) and writes each rank's Chrome trace to
   ``workdir/profile/steps_<a>-<b>_rank<r>.pt.trace.json``, the device
-  synchronized before the profiler stops. The JAX package's trace server,
-  ``training.profiler_port``, has no PyTorch counterpart: a nonzero value
-  raises.
+  synchronized before the profiler stops; the trace carries the port's
+  spans (``utils/tracing.py``: the train step and its parts, the data
+  wait, the network, its norms, FIR filters and attention). The JAX
+  package's trace server, ``training.profiler_port``, has no PyTorch
+  counterpart: a nonzero value raises.
+
+  Every ``log_freq`` steps the log line gives, beside the wall's s/step,
+  the host ms a step spent inside the step function and waiting for the
+  input pipeline (the ``train.step`` and ``data.wait`` counters).
 
   Returns ``{"initial_step", "step", "train_losses", "eval_losses"}``, the
   losses as ``(step, value)`` pairs of the logged values."""
@@ -354,6 +372,7 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
   profiler = (_start_trace(device) if trace_steps > 0
               and step < tcfg.n_iters else None)
   t_last = time.time()
+  counted_last = tracing.counters()
   train_losses, eval_losses = [], []
   while step < tcfg.n_iters:
     loss = train_step(state, next_batches(train_iter), state["generator"])
@@ -366,8 +385,13 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
       loss_val = float(loss.mean())
       dt = time.time() - t_last
       t_last = time.time()
-      logging.info("step: %d, training_loss: %.5e (%.3f s/step)", step,
-                   loss_val, dt / max(tcfg.log_freq, 1))
+      counted = tracing.counters()
+      host_ms, wait_ms = _host_ms_per_step(counted_last, counted)
+      counted_last = counted
+      logging.info("step: %d, training_loss: %.5e (%.3f s/step), host "
+                   "%.1f ms/step in the step function, data wait %.2f "
+                   "ms/step", step, loss_val, dt / max(tcfg.log_freq, 1),
+                   host_ms, wait_ms)
       writer.add_scalar("training_loss", loss_val, step)
       train_losses.append((step, loss_val))
 

@@ -33,6 +33,7 @@ from score_sde_pytorch_tpu_torch import parallel
 from score_sde_pytorch_tpu_torch import sde as sde_lib
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.sde import batch_mul
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 _PREDICTORS = {}
 _CORRECTORS = {}
@@ -260,8 +261,9 @@ def get_pc_sampler(sde, model, shape, predictor, corrector,
   ``group``). Returns ``sampler(generator) -> (samples, nfe)`` with NHWC
   samples (the rank's rows) on ``device`` and ``nfe = N * (n_steps + 1)``.
   Each step runs the corrector, then the predictor, at one time of
-  ``linspace(T, eps, N)``. ``device=None`` takes the device of the model's
-  parameters."""
+  ``linspace(T, eps, N)``: the spans ``pc.step``, ``pc.corrector`` and
+  ``pc.predictor``, the level's index their args (``utils/tracing.py``).
+  ``device=None`` takes the device of the model's parameters."""
   predictor = predictor or _PREDICTORS["none"]
   corrector = corrector or _CORRECTORS["none"]
   b, h, w, c = shape
@@ -279,11 +281,14 @@ def get_pc_sampler(sde, model, shape, predictor, corrector,
       x_mean = x
       timesteps = sde_lib.linspace(sde.T, eps, sde.N, device)
       for i in range(sde.N):
-        t = timesteps[i].expand(local_b)
-        x, x_mean = corrector_update(
-            x, t, step_noise(state_shape, generator, device, group))
-        z = local_normal(state_shape, generator, device, group)
-        x, x_mean = predictor_update(x, t, z)
+        with tracing.span("pc.step", i):
+          t = timesteps[i].expand(local_b)
+          with tracing.span("pc.corrector", i):
+            x, x_mean = corrector_update(
+                x, t, step_noise(state_shape, generator, device, group))
+          with tracing.span("pc.predictor", i):
+            z = local_normal(state_shape, generator, device, group)
+            x, x_mean = predictor_update(x, t, z)
       out = inverse_scaler(x_mean if denoise else x)
     return out.permute(0, 2, 3, 1), sde.N * (n_steps + 1)
 

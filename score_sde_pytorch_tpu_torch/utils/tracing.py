@@ -1,0 +1,65 @@
+"""Spans and counters of the port's hot paths.
+
+``span(name, args)`` marks a block as a ``torch.profiler`` user
+annotation, so that a trace (``training.trace_steps``, or any profiler the
+caller runs) holds the block on the same clock as the kernels it
+launched. It enters ``record_function`` only while a profiler is
+recording: otherwise it returns one shared no-op context, and costs a
+check of the profiler's state.
+
+``counted(name)`` is a span that also adds the block's host seconds to a
+process-wide counter of that name, with or without a profiler. The
+counters sit at the train loop's boundaries (a few a step): ``train.step``
+and its parts ``train.loss``, ``train.backward``, ``train.optimize``,
+``train.ema``; ``eval.step``; ``data.wait``, the time the host waits for
+the input pipeline's next batch. ``counters()`` returns their totals.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+
+import torch
+
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_totals = collections.defaultdict(lambda: [0, 0.0])
+
+
+def span(name: str, args=None):
+  """A ``record_function(name, str(args))`` context while a profiler
+  records, else a no-op one."""
+  if not _recording():
+    return _OFF
+  return torch.profiler.record_function(
+      name, None if args is None else str(args))
+
+
+class counted:
+  """``span(span_name or name, args)`` around a block whose host seconds
+  (``time.perf_counter``) and count add to counter ``name``."""
+
+  __slots__ = ("name", "span", "start")
+
+  def __init__(self, name: str, span_name: str | None = None, args=None):
+    self.name = name
+    self.span = span(span_name or name, args)
+
+  def __enter__(self):
+    self.span.__enter__()
+    self.start = time.perf_counter()
+    return self
+
+  def __exit__(self, *exc):
+    total = _totals[self.name]
+    total[0] += 1
+    total[1] += time.perf_counter() - self.start
+    return self.span.__exit__(*exc)
+
+
+def counters() -> dict:
+  """``{name: {"count": n, "seconds": s}}``: the counters' totals since the
+  process started."""
+  return {name: {"count": n, "seconds": s}
+          for name, (n, s) in list(_totals.items())}

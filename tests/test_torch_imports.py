@@ -30,6 +30,7 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.native.loader",
     "score_sde_pytorch_tpu_torch.utils",
     "score_sde_pytorch_tpu_torch.utils.image",
+    "score_sde_pytorch_tpu_torch.utils.tracing",
     "score_sde_pytorch_tpu_torch.sde",
     "score_sde_pytorch_tpu_torch.ops.attention",
     "score_sde_pytorch_tpu_torch.ops.fused_act",

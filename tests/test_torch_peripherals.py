@@ -83,7 +83,7 @@ def _trace_files(workdir: str) -> list:
 def test_trace_steps_writes_a_trace_of_the_first_steps(tmp_path):
   """trace_steps = 2 traces steps 1-2 of a run and steps 3-4 of its
   resume: a Chrome trace each, whose events include the train step's
-  convolutions and the attention."""
+  convolutions and the attention, and the port's spans."""
   wd = str(tmp_path / "wd")
   for n_iters in (2, 6):
     run_lib.train(_config("training.batch_size=4", "training.n_jitted_steps=1",
@@ -98,6 +98,7 @@ def test_trace_steps_writes_a_trace_of_the_first_steps(tmp_path):
     names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
   assert "aten::convolution" in names
   assert "aten::bmm" in names  # the plain attention on the CPU
+  assert {"train.step", "ncsnpp.forward", "op.norm_act"} <= names
 
 
 def test_trace_steps_longer_than_the_run_stops_at_its_end(tmp_path):
