@@ -191,7 +191,11 @@ to 6 (NCSN++/DDPM++ at 32², the CelebA NCSN++ at 64²), 4 (the DDPM at
 32² and 256², the church NCSN++ in fp32 and bf16), 7 (multiattn), 3
 (1024², fp32 and bf16) and 0 (NCSN, NCSNv2), and the backward calls to
 as many per train step (remat recomputes the resblocks, not the
-attention) and per bits/dim drift evaluation.
+attention) and per bits/dim drift evaluation. A train step on one card
+without remat replays CUDA graphs of the resblocks (``models/graphs.py``),
+captured after one forward without gradient that records their inputs:
+the runs add one forward's attention launches per capture, read from the
+``graph.capture`` counter.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
@@ -1194,6 +1198,7 @@ def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
              if p.requires_grad]
   attn.flash_attention_launches = 0
   attn.flash_attention_backward_launches = 0
+  graphs_before = [_graph(n) for n in ("capture", "replay", "eager")]
   runs = []
   for n_iters, sampling_on in ((10, True), (20, False)):
     start = time.perf_counter()
@@ -1236,13 +1241,21 @@ def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
   evals = 4                    # steps 5, 10, 15 and 20
   steps = 20
   nfe = SMOKE_SCALES * (config.sampling.n_steps_each + 1)
-  want = (ATTN_PER_FORWARD * (steps + n_jitted * evals + nfe),
+  captures, replays, eager = (_graph(n) - b for n, b in zip(
+      ("capture", "replay", "eager"), graphs_before))
+  want = (ATTN_PER_FORWARD * (steps + n_jitted * evals + nfe + captures),
           ATTN_PER_FORWARD * steps)
   say(f"[train] kernel launches: forward {launches[0]} = {ATTN_PER_FORWARD} x "
       f"({steps} train steps + {n_jitted} x {evals} eval calls + {nfe} "
-      f"sampling NFE), backward calls {launches[1]} = {ATTN_PER_FORWARD} x "
-      f"{steps} train steps")
+      f"sampling NFE + {captures} graph captures), backward calls "
+      f"{launches[1]} = {ATTN_PER_FORWARD} x {steps} train steps; resblock "
+      f"graphs: {replays} replayed and {eager} eager calls")
   check(launches == want, f"train launches {launches}, want {want}")
+  # One capture per run (a fresh model each), and every resblock call of
+  # every train step replayed: the flagship's 44 a forward.
+  check((captures, replays, eager) == (len(runs), 44 * steps, 0),
+        f"[train] graph captures {captures}, replays {replays}, eager "
+        f"calls {eager}, want {len(runs)}, {44 * steps}, 0")
   return launches + (phase_train_time(torch, config, card_line),)
 
 
@@ -1539,6 +1552,7 @@ def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
       config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()]
   attn.flash_attention_launches = 0
   attn.flash_attention_backward_launches = 0
+  captured = _graph("capture")
   start = time.perf_counter()
   with network_evals(torch) as evals:
     run = main.main(["--config", VP_CONFIG, "--workdir", workdir,
@@ -1546,6 +1560,7 @@ def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
                     + [f"--config.{k}={v}" for k, v in flags.items()])
   launches = (attn.flash_attention_launches,
               attn.flash_attention_backward_launches)
+  captures = _graph("capture") - captured
   say(f"[vp-train] main --mode train, {VP_TRAIN_STEPS} steps at batch "
       f"{TRAIN_BATCH}, snapshot sampling Euler-Maruyama at num_scales "
       f"{SMOKE_SCALES}: {time.perf_counter() - start:.1f} s wall; losses "
@@ -1563,11 +1578,13 @@ def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
         f"[vp-train] snapshot samples {samples.shape}")
   eval_calls = VP_TRAIN_STEPS // config.training.eval_freq
   want_evals = VP_TRAIN_STEPS + n_jitted * eval_calls + SMOKE_SCALES
-  want = (ATTN_PER_FORWARD * want_evals, ATTN_PER_FORWARD * VP_TRAIN_STEPS)
+  want = (ATTN_PER_FORWARD * (want_evals + captures),
+          ATTN_PER_FORWARD * VP_TRAIN_STEPS)
   say(f"[vp-train] kernel launches: forward {launches[0]} = "
-      f"{ATTN_PER_FORWARD} x {evals[0]} network evaluations ("
+      f"{ATTN_PER_FORWARD} x ({evals[0]} network evaluations ("
       f"{VP_TRAIN_STEPS} train steps + {n_jitted} x {eval_calls} eval calls "
-      f"+ {SMOKE_SCALES} sampling), backward calls {launches[1]} = "
+      f"+ {SMOKE_SCALES} sampling) + {captures} graph captures), backward "
+      f"calls {launches[1]} = "
       f"{ATTN_PER_FORWARD} x {VP_TRAIN_STEPS} train steps")
   check(evals[0] == want_evals, f"[vp-train] {evals[0]} network "
         f"evaluations, want {want_evals}")
@@ -1722,6 +1739,7 @@ def phase_train_run(torch, attn, config_path: str, workdir: str, flags: dict,
              if p.requires_grad]
   attn.flash_attention_launches = 0
   attn.flash_attention_backward_launches = 0
+  captured = _graph("capture")
   runs = []
   with network_evals(torch) as evals:
     for n_iters in (tcfg.n_iters,) + ((resume_to,) if resume_to else ()):
@@ -1751,9 +1769,12 @@ def phase_train_run(torch, attn, config_path: str, workdir: str, flags: dict,
     _ckpt_checks(torch, checkpoint.numbered_path(workdir, n),
                  n * tcfg.snapshot_freq, initial, config.model.ema_rate)
   eval_forwards = tcfg.n_jitted_steps * (steps // tcfg.eval_freq)
-  want = (per_forward * (steps + eval_forwards), per_forward * steps)
+  captures = _graph("capture") - captured
+  want = (per_forward * (steps + eval_forwards + captures),
+          per_forward * steps)
   say(f"{tag} {evals[0]} network evaluations ({steps} train steps + "
-      f"{eval_forwards} eval forwards); kernel launches: forward "
+      f"{eval_forwards} eval forwards), {captures} resblock graph captures "
+      f"(one recording forward each); kernel launches: forward "
       f"{launches[0]}, backward calls {launches[1]} = {per_forward} x "
       f"{steps} train steps")
   check(evals[0] == steps + eval_forwards,
@@ -2464,14 +2485,17 @@ def phase_uri(torch, attn, card_line: str) -> tuple:
       say(f"[uri] gs:// without a handler raised before any step: {raised}")
       for name, args, steps in runs:
         _reset(attn)
+        captured = _graph("capture")
         start = time.perf_counter()
         with network_evals(torch) as evals:
           main.main(common + args)
         launches = _counts(attn)
+        captures = _graph("capture") - captured
         say(f"[uri] {name} on {wd}: {time.perf_counter() - start:.1f} s "
-            f"wall; {evals[0]} network evaluations, launches {launches}")
+            f"wall; {evals[0]} network evaluations, {captures} resblock "
+            f"graph captures, launches {launches}")
         check(evals[0] > 0 and launches == {
-            "forward": ATTN_PER_FORWARD * evals[0],
+            "forward": ATTN_PER_FORWARD * (evals[0] + captures),
             "backward": ATTN_PER_FORWARD * steps},
               f"[uri] {name}: {evals[0]} evaluations, launches {launches}")
         fwd += launches["forward"]
@@ -2650,20 +2674,25 @@ def phase_h100_leaves(torch, attn, card_line: str) -> tuple:
       profiled["prof"] = prof
 
     _reset(attn)
+    captured, refused = _graph("capture"), _graph("capture_failed")
     got = train_step_grid.measure(config, batch, LEAF_STEPS,
                                   after=profile_one_step)
     check(not got.get("oom"), f"{tag} out of memory at batch {batch}")
     launches = _counts(attn)
+    captures = _graph("capture") - captured
+    failed = _graph("capture_failed") - refused
     ms, peak = got["ms"], got["peak_gib"]
     say(f"{tag} (dtype {config.model.dtype}, remat {config.model.remat}) at "
         f"batch {batch}: {ms:.1f} ms/step = {got['images_per_s']:.2f} "
         f"images/s over {LEAF_STEPS} steps (SM clock {got['sm_mhz']} MHz, "
         f"{got['watts']} W); peak max_memory_allocated {peak:.2f} of "
         f"{total:.2f} GiB ({peak / total:.3f}); launches {launches} in "
-        f"{LEAF_STEPS + 2} steps ({card_line})")
+        f"{LEAF_STEPS + 2} steps and {captures} resblock graph captures "
+        f"({failed} failed) ({card_line})")
     want = per * (LEAF_STEPS + 2)
-    check(launches == {"forward": want, "backward": want},
-          f"{tag} launches {launches}, want {want} each")
+    check(launches == {"forward": want + per * captures, "backward": want},
+          f"{tag} launches {launches}, want {want} (and {per} x "
+          f"{captures} captures) forward, {want} backward")
     check(peak <= 0.9 * total, f"{tag} peak {peak:.2f} GiB of {total:.2f}")
     by_kernel = _device_us_by_kernel(profiled.pop("prof"))
     busy_ms = sum(by_kernel.values()) / 1e3
@@ -2676,7 +2705,7 @@ def phase_h100_leaves(torch, attn, card_line: str) -> tuple:
     else:
       say(f"{tag} profiler: no device time recorded; idle share not "
           "measured")
-    fwd += want
+    fwd += launches["forward"]
     bwd += want
   return fwd, bwd
 
@@ -2996,8 +3025,10 @@ def phase_learn(torch, attn, card_line: str) -> tuple:
   config = lp.load_config(tiny=False, dtype="float32", seed=lp.SEED)
   proof = lp.Proof(config, "gaussian", "cuda", lp.FULL)
   _reset(attn)
+  captured = _graph("capture")
   result = lp.train(proof, LEARN_STEPS // lp.N_INNER, probe_every=0)
   trained = _counts(attn)
+  recorded = ATTN_PER_FORWARD * (_graph("capture") - captured)
   rel = proof.score_rel_err(lp.PROBE_TIMES, seed=42)
   counts = _counts(attn)
   share = result["loss_curve"][-1] / result["first_step_loss"]
@@ -3011,9 +3042,10 @@ def phase_learn(torch, attn, card_line: str) -> tuple:
   for t, bound in LEARN_REL_BOUND.items():
     check(rel[t] < bound, f"[learn] rel-L2 {rel[t]} at t = {t}")
   want = ATTN_PER_FORWARD * LEARN_STEPS
-  check(trained == {"forward": want, "backward": want},
-        f"[learn] launches {trained} in {LEARN_STEPS} train steps")
-  check(counts["forward"] - want == ATTN_PER_FORWARD * len(rel)
+  check(trained == {"forward": want + recorded, "backward": want},
+        f"[learn] launches {trained} in {LEARN_STEPS} train steps and "
+        f"{recorded} in graph captures")
+  check(counts["forward"] - want - recorded == ATTN_PER_FORWARD * len(rel)
         and counts["backward"] == want,
         f"[learn] launches {counts} with {len(rel)} score evaluations")
   return counts["forward"], counts["backward"]
@@ -3027,6 +3059,15 @@ def _counts(attn) -> dict:
 def _reset(attn) -> None:
   attn.flash_attention_launches = 0
   attn.flash_attention_backward_launches = 0
+
+
+def _graph(name: str) -> int:
+  """The count of ``graph.<name>`` (``models/graphs.py``). Each capture of
+  a model's resblock graphs (``graph.capture``) begins with one forward
+  without gradient that records the blocks' inputs: one forward's
+  attention launches more than the train steps ask for."""
+  from score_sde_pytorch_tpu_torch.utils import tracing
+  return tracing.counters().get(f"graph.{name}", {}).get("count", 0)
 
 
 def _flat_params(torch, model):
@@ -3709,8 +3750,10 @@ def phase_ddp_nccl(torch, attn, card_line: str, plain_ms: float) -> tuple:
 
   with tempfile.TemporaryDirectory() as workdir:
     _reset(attn)
+    captured = _graph("capture")
     main.main(flags(workdir, first))
-    check(_counts(attn) == {"forward": ATTN_PER_FORWARD * first,
+    captures = _graph("capture") - captured
+    check(_counts(attn) == {"forward": ATTN_PER_FORWARD * (first + captures),
                             "backward": ATTN_PER_FORWARD * first},
           f"[ddp-nccl] launches without a group {_counts(attn)}")
     fwd, bwd = _counts(attn).values()

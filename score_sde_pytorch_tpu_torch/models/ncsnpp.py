@@ -47,6 +47,11 @@ must hold an even number of rows a rank. A resblock under remat recomputes
 its collectives in the backward: the recompute re-enters the split, and
 every rank's backward meets them in one order. Without the flag, or
 without a space group, the forward is unchanged, bit for bit.
+
+In a train step on one card, each resblock call replays CUDA graphs of the
+block's forward and backward, captured at the first such step
+(``models/graphs.py``, which says when a call qualifies); every other call
+runs the block eagerly.
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
-from score_sde_pytorch_tpu_torch.models import layers, layerspp, utils
+from score_sde_pytorch_tpu_torch.models import graphs, layers, layerspp, utils
 from score_sde_pytorch_tpu_torch.parallel import distributed, spatial
 from score_sde_pytorch_tpu_torch.utils import tracing
 
@@ -228,12 +233,18 @@ class NCSNpp(nn.Module):
         channels, generator=g, fir=fir, fir_kernel=fir_kernel)
     self.pyramid_downsample = layerspp.Downsample(
         channels, generator=g, fir=fir, fir_kernel=fir_kernel)
+    self._graphs = graphs.BlockGraphs()
 
   def _resblock(self, block: nn.Module, x: torch.Tensor,
                 temb: torch.Tensor) -> torch.Tensor:
-    """``block(x, temb)``, recomputed in the backward under ``model.remat``
-    (JAX ``block_call``, ncsnpp.py:96-99), on a slab inside the split it
-    ran in. The rule reads the whole image's height, as JAX's does."""
+    """``block(x, temb)``: its graphs replayed in a train step on one card
+    (``models/graphs.py``), else eagerly, recomputed in the backward under
+    ``model.remat`` (JAX ``block_call``, ncsnpp.py:96-99), on a slab inside
+    the split it ran in. The rule reads the whole image's height, as JAX's
+    does."""
+    out = self._graphs.replay(block, x, temb)
+    if out is not None:
+      return out
     group = spatial.group()
     height = x.shape[2] * distributed.group_size(group)
     if (self.remat and torch.is_grad_enabled()
@@ -266,6 +277,7 @@ class NCSNpp(nn.Module):
       return self._forward(x, time_cond)
 
   def _forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
+    self._graphs.prepare(self, x, time_cond)
     with tracing.span("ncsnpp.forward"):
       return self._layers(x, time_cond)
 

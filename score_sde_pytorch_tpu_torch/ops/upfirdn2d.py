@@ -43,7 +43,9 @@ def setup_kernel(k: KernelLike) -> np.ndarray:
   return k
 
 
-@functools.lru_cache(maxsize=64)
+# Unbounded: a captured CUDA graph (models/graphs.py) reads these weights
+# by address, so none may be dropped and reallocated.
+@functools.lru_cache(maxsize=None)
 def _depthwise_weight(taps: tuple, channels: int,
                       axis: int, device: torch.device,
                       dtype: torch.dtype) -> torch.Tensor:

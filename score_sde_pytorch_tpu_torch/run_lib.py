@@ -259,6 +259,20 @@ def _host_ms_per_step(before: dict, after: dict) -> tuple:
           1e3 * delta("data.wait", "seconds") / steps)
 
 
+def _replayed_share(before: dict, after: dict) -> str:
+  """The share of the resblocks' train-step calls that replayed CUDA
+  graphs between two snapshots of ``tracing.counters()``, as text ('-'
+  where none ran)."""
+
+  def delta(name: str) -> int:
+    return (after.get(name, {}).get("count", 0)
+            - before.get(name, {}).get("count", 0))
+
+  replayed = delta("graph.replay")
+  calls = replayed + delta("graph.eager")
+  return f"{100 * replayed / calls:.1f}%" if calls else "-"
+
+
 def train(config, workdir: str, device: str = "cuda") -> dict:
   """Train loop (JAX run_lib.py:66-248).
 
@@ -296,7 +310,11 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
 
   Every ``log_freq`` steps the log line gives, beside the wall's s/step,
   the host ms a step spent inside the step function and waiting for the
-  input pipeline (the ``train.step`` and ``data.wait`` counters).
+  input pipeline (the ``train.step`` and ``data.wait`` counters), and the
+  share of the resblocks' train-step calls that replayed CUDA graphs
+  (``models/graphs.py``; the ``graph.replay`` and ``graph.eager``
+  counters). Under replay the ``train.backward`` counter times the
+  autograd engine over the graphed nodes, not a dispatch per op.
 
   Returns ``{"initial_step", "step", "train_losses", "eval_losses"}``, the
   losses as ``(step, value)`` pairs of the logged values."""
@@ -387,11 +405,12 @@ def train(config, workdir: str, device: str = "cuda") -> dict:
       t_last = time.time()
       counted = tracing.counters()
       host_ms, wait_ms = _host_ms_per_step(counted_last, counted)
+      replayed = _replayed_share(counted_last, counted)
       counted_last = counted
       logging.info("step: %d, training_loss: %.5e (%.3f s/step), host "
                    "%.1f ms/step in the step function, data wait %.2f "
-                   "ms/step", step, loss_val, dt / max(tcfg.log_freq, 1),
-                   host_ms, wait_ms)
+                   "ms/step, resblock calls replayed %s", step, loss_val,
+                   dt / max(tcfg.log_freq, 1), host_ms, wait_ms, replayed)
       writer.add_scalar("training_loss", loss_val, step)
       train_losses.append((step, loss_val))
 

@@ -12,7 +12,10 @@ process-wide counter of that name, with or without a profiler. The
 counters sit at the train loop's boundaries (a few a step): ``train.step``
 and its parts ``train.loss``, ``train.backward``, ``train.optimize``,
 ``train.ema``; ``eval.step``; ``data.wait``, the time the host waits for
-the input pipeline's next batch. ``counters()`` returns their totals.
+the input pipeline's next batch; ``graph.replay`` around each replayed
+resblock graph (``models/graphs.py``). ``count(name)`` adds to a count
+alone: ``graph.eager``, ``graph.capture``, ``graph.capture_failed``.
+``counters()`` returns their totals.
 """
 from __future__ import annotations
 
@@ -56,6 +59,11 @@ class counted:
     total[0] += 1
     total[1] += time.perf_counter() - self.start
     return self.span.__exit__(*exc)
+
+
+def count(name: str) -> None:
+  """Adds one to counter ``name``'s count, and no seconds."""
+  _totals[name][0] += 1
 
 
 def counters() -> dict:

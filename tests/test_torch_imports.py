@@ -40,6 +40,7 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.models.layers",
     "score_sde_pytorch_tpu_torch.models.layerspp",
     "score_sde_pytorch_tpu_torch.models.ncsnpp",
+    "score_sde_pytorch_tpu_torch.models.graphs",
     "score_sde_pytorch_tpu_torch.models.ncsnv2",
     "score_sde_pytorch_tpu_torch.models.normalization",
     "score_sde_pytorch_tpu_torch.models.utils",

@@ -217,3 +217,6 @@ def test_the_train_log_line_gives_the_counters_per_step(tmp_path, caplog):
   lines = re.findall(r"s/step\), host ([\d.]+) ms/step in the step "
                      r"function, data wait ([\d.]+) ms/step", caplog.text)
   assert len(lines) == 2 and all(float(host) > 0 for host, _ in lines)
+  # On the CPU every resblock call of a train step runs eagerly.
+  assert len(re.findall(r"ms/step, resblock calls replayed 0\.0%",
+                        caplog.text)) == 2
