@@ -2674,13 +2674,13 @@ def phase_h100_leaves(torch, attn, card_line: str) -> tuple:
       profiled["prof"] = prof
 
     _reset(attn)
-    captured, refused = _graph("capture"), _graph("capture_failed")
+    before = {k: _graph(k) for k in ("capture", "capture_refused",
+                                     "capture_failed")}
     got = train_step_grid.measure(config, batch, LEAF_STEPS,
                                   after=profile_one_step)
     check(not got.get("oom"), f"{tag} out of memory at batch {batch}")
     launches = _counts(attn)
-    captures = _graph("capture") - captured
-    failed = _graph("capture_failed") - refused
+    captures, refused, failed = (_graph(k) - n for k, n in before.items())
     ms, peak = got["ms"], got["peak_gib"]
     say(f"{tag} (dtype {config.model.dtype}, remat {config.model.remat}) at "
         f"batch {batch}: {ms:.1f} ms/step = {got['images_per_s']:.2f} "
@@ -2688,7 +2688,7 @@ def phase_h100_leaves(torch, attn, card_line: str) -> tuple:
         f"{got['watts']} W); peak max_memory_allocated {peak:.2f} of "
         f"{total:.2f} GiB ({peak / total:.3f}); launches {launches} in "
         f"{LEAF_STEPS + 2} steps and {captures} resblock graph captures "
-        f"({failed} failed) ({card_line})")
+        f"({refused} refused, {failed} failed) ({card_line})")
     want = per * (LEAF_STEPS + 2)
     check(launches == {"forward": want + per * captures, "backward": want},
           f"{tag} launches {launches}, want {want} (and {per} x "

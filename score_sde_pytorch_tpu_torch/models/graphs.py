@@ -29,15 +29,15 @@ more than the train step does) and reads the memory the forward keeps for
 its backward. The graphs hold that in their own memory pool, with their
 copies of each block's input and output gradient and the parameters'
 gradients; with Adam's two moments, all of it may take at most half of
-what the card has free, or the capture counts as failed. The pool and the
+what the card has free, or the capture is refused. The pool and the
 eager rest of the step cannot lend each other memory, and a step that
 fills the card is bound by the device, where graphs save nothing (church
 256² at batch 24 and CelebA-HQ 1024² at 8 on an H100 stay eager). All
 blocks then go to one ``make_graphed_callables`` call in that order, so
 they share one memory pool. The default CUDA generator's state is saved before and restored
 after, so dropout draws the masks that the eager loop would. If the
-capture fails, the model stays eager for the rest of the process, with one
-warning.
+capture is refused or fails, the model stays eager for the rest of the
+process, with one warning that says which.
 
 What a replay asks of its caller:
 
@@ -65,7 +65,9 @@ capture of the backward and invalidate it.
 Counters (``utils/tracing.py``): ``graph.replay`` (and its span) around
 each replayed block call; ``graph.eager`` for each block call in training
 mode with gradients that ran eagerly; ``graph.capture`` for each recording
-forward, and ``graph.capture_failed``.
+forward; ``graph.capture_refused`` for a capture declined because the
+graphs would take over half of the free card, and ``graph.capture_failed``
+for one that raised.
 """
 from __future__ import annotations
 
@@ -78,6 +80,10 @@ import torch.distributed as dist
 
 from score_sde_pytorch_tpu_torch.parallel import spatial
 from score_sde_pytorch_tpu_torch.utils import tracing
+
+
+class _Refused(Exception):
+  """The graphs would take more than half of the card's free memory."""
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -119,6 +125,11 @@ class BlockGraphs:
     failed = None
     try:
       self._capture(model, x, time_cond)
+    except _Refused as e:
+      self._eager = True
+      tracing.count("graph.capture_refused")
+      logging.warning("CUDA graphs of the resblocks refused (%s); they run "
+                      "eagerly from now on.", e)
     except RuntimeError as e:  # torch's CUDA and out-of-memory errors
       # A capture that fails can leave its side stream the current one, and
       # the default generator counting draws inside a capture.
@@ -128,9 +139,9 @@ class BlockGraphs:
       torch.cuda.default_generators[x.device.index].graphsafe_set_state(fresh)
       self._graphed, self._eager = {}, True
       failed = str(e)
-    else:
+    if failed is None:
       torch.cuda.set_rng_state(rng, x.device)
-    if failed is not None:  # the traceback is gone: free what the capture held
+    else:  # the traceback is gone: free what the capture held
       torch.cuda.empty_cache()
       tracing.count("graph.capture_failed")
       logging.warning("CUDA graphs of the resblocks not captured (%s); "
@@ -165,7 +176,7 @@ class BlockGraphs:
     torch.cuda.empty_cache()  # the recording forward's memory, to the card
     free, _ = torch.cuda.mem_get_info(x.device)
     if 2 * (kept + copies + grads) > free:
-      raise RuntimeError(
+      raise _Refused(
           f"the graphs need {(kept + copies + grads) / 2 ** 30:.2f} GiB, "
           f"more than half of the card's {free / 2 ** 30:.2f} GiB free")
     blocks = tuple(block for block, _ in calls)

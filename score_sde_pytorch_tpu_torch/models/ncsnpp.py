@@ -52,6 +52,15 @@ In a train step on one card, each resblock call replays CUDA graphs of the
 block's forward and backward, captured at the first such step
 (``models/graphs.py``, which says when a call qualifies); every other call
 runs the block eagerly.
+
+Spans (``utils/tracing.py``, only while a profiler records): the forward
+sits in ``ncsnpp.forward``; each U-Net level's work in
+``ncsnpp.res{R}``, named by the level's whole-image resolution R, opened
+on the way down and again on the way up (``conv_in`` and the output head
+in the first level's, the middle blocks in the last level's); each
+pyramid step in ``ncsnpp.pyramid`` inside it: the input pyramid's
+downsample and its combine or sum with ``h``, the output pyramid's
+norm, conv, upsample and sum.
 """
 from __future__ import annotations
 
@@ -120,6 +129,7 @@ class NCSNpp(nn.Module):
     self.remat_min_res = int(m.get("remat_min_res", 0))
     self.spatial_sharding = bool(m.get("spatial_sharding", False))
     self.all_resolutions = all_resolutions
+    self._res_spans = [f"ncsnpp.res{r}" for r in all_resolutions]
     fir, fir_kernel = m.fir, tuple(m.fir_kernel)
     init_scale = m.init_scale
     channels = config.data.num_channels
@@ -299,76 +309,88 @@ class NCSNpp(nn.Module):
       x = 2 * x - 1.0                                # [0, 1] -> [-1, 1]
 
     block = self._resblock
+    span, pyramid_span = tracing.span, "ncsnpp.pyramid"
+    res_spans = self._res_spans
     input_pyramid = x
-    hs = [next(modules)(x)]                          # conv_in
+    with span(res_spans[0]):
+      hs = [next(modules)(x)]                        # conv_in
     for i_level in range(self.num_resolutions):
-      for _ in range(self.num_res_blocks):
-        h = block(next(modules), hs[-1], temb)       # down_{i}_block_{j}
-        if h.shape[-1] in self.attn_resolutions:
-          h = next(modules)(h)                       # down_{i}_attn_{j}
-        hs.append(h)
-      if i_level != self.num_resolutions - 1:
-        if self.resblock_type == "ddpm":
-          h = next(modules)(hs[-1])                  # down_{i}_downsample
-        else:
-          h = block(next(modules), hs[-1], temb)     # down_{i}_downsample
-        if self.progressive_input == "input_skip":
-          input_pyramid = self.pyramid_downsample(input_pyramid)
-          h = next(modules)(input_pyramid, h)        # combine_{i}
-        elif self.progressive_input == "residual":
-          input_pyramid = next(modules)(             # pyramid_downsample_{i}
-              input_pyramid).to(h.dtype)
-          if self.skip_rescale:  # np.sqrt(2.0) in JAX: an fp32 result
-            input_pyramid = (input_pyramid + h).float() / _SQRT2
+      with span(res_spans[i_level]):
+        for _ in range(self.num_res_blocks):
+          h = block(next(modules), hs[-1], temb)     # down_{i}_block_{j}
+          if h.shape[-1] in self.attn_resolutions:
+            h = next(modules)(h)                     # down_{i}_attn_{j}
+          hs.append(h)
+        if i_level != self.num_resolutions - 1:
+          if self.resblock_type == "ddpm":
+            h = next(modules)(hs[-1])                # down_{i}_downsample
           else:
-            input_pyramid = input_pyramid + h
-          h = input_pyramid
-        hs.append(h)
+            h = block(next(modules), hs[-1], temb)   # down_{i}_downsample
+          if self.progressive_input == "input_skip":
+            with span(pyramid_span):
+              input_pyramid = self.pyramid_downsample(input_pyramid)
+              h = next(modules)(input_pyramid, h)    # combine_{i}
+          elif self.progressive_input == "residual":
+            with span(pyramid_span):
+              input_pyramid = next(modules)(         # pyramid_downsample_{i}
+                  input_pyramid).to(h.dtype)
+              if self.skip_rescale:  # np.sqrt(2.0) in JAX: an fp32 result
+                input_pyramid = (input_pyramid + h).float() / _SQRT2
+              else:
+                input_pyramid = input_pyramid + h
+            h = input_pyramid
+          hs.append(h)
 
-    h = hs[-1]
-    h = block(next(modules), h, temb)                # mid_block_0
-    h = next(modules)(h)                             # mid_attn
-    h = block(next(modules), h, temb)                # mid_block_1
+    with span(res_spans[-1]):
+      h = hs[-1]
+      h = block(next(modules), h, temb)              # mid_block_0
+      h = next(modules)(h)                           # mid_attn
+      h = block(next(modules), h, temb)              # mid_block_1
 
     pyramid = None
     for i_level in reversed(range(self.num_resolutions)):
-      for _ in range(self.num_res_blocks + 1):
-        h = block(next(modules), torch.cat([h, hs.pop()], dim=1),
-                  temb)                              # up_{i}_block_{j}
-      if h.shape[-1] in self.attn_resolutions:
-        h = next(modules)(h)                         # up_{i}_attn
-      if self.progressive == "output_skip":
-        pyramid_h = layers.norm_act(next(modules), h,
-                                    act)             # pyramid_norm_{i}
-        pyramid_h = next(modules)(pyramid_h)         # pyramid_conv_{i}
-        if pyramid is None:
-          pyramid = pyramid_h
-        else:
-          pyramid = self.pyramid_upsample(pyramid) + pyramid_h
-      elif self.progressive == "residual":
-        if pyramid is None:
-          pyramid = layers.norm_act(next(modules), h,
-                                    act)             # pyramid_norm_{i}
-          pyramid = next(modules)(pyramid)           # pyramid_conv_{i}
-        else:
-          pyramid = next(modules)(pyramid).to(h.dtype)  # pyramid_upsample_{i}
-          if self.skip_rescale:  # np.sqrt(2.0) in JAX: an fp32 result
-            pyramid = (pyramid + h).float() / _SQRT2
+      with span(res_spans[i_level]):
+        for _ in range(self.num_res_blocks + 1):
+          h = block(next(modules), torch.cat([h, hs.pop()], dim=1),
+                    temb)                            # up_{i}_block_{j}
+        if h.shape[-1] in self.attn_resolutions:
+          h = next(modules)(h)                       # up_{i}_attn
+        if self.progressive == "output_skip":
+          with span(pyramid_span):
+            pyramid_h = layers.norm_act(next(modules), h,
+                                        act)         # pyramid_norm_{i}
+            pyramid_h = next(modules)(pyramid_h)     # pyramid_conv_{i}
+            if pyramid is None:
+              pyramid = pyramid_h
+            else:
+              pyramid = self.pyramid_upsample(pyramid) + pyramid_h
+        elif self.progressive == "residual":
+          with span(pyramid_span):
+            if pyramid is None:
+              pyramid = layers.norm_act(next(modules), h,
+                                        act)         # pyramid_norm_{i}
+              pyramid = next(modules)(pyramid)       # pyramid_conv_{i}
+            else:
+              pyramid = next(modules)(pyramid).to(
+                  h.dtype)                           # pyramid_upsample_{i}
+              if self.skip_rescale:  # np.sqrt(2.0) in JAX: an fp32 result
+                pyramid = (pyramid + h).float() / _SQRT2
+              else:
+                pyramid = pyramid + h
+              h = pyramid
+        if i_level != 0:
+          if self.resblock_type == "ddpm":
+            h = next(modules)(h)                     # up_{i}_upsample
           else:
-            pyramid = pyramid + h
-          h = pyramid
-      if i_level != 0:
-        if self.resblock_type == "ddpm":
-          h = next(modules)(h)                       # up_{i}_upsample
-        else:
-          h = block(next(modules), h, temb)          # up_{i}_upsample
+            h = block(next(modules), h, temb)        # up_{i}_upsample
     assert not hs
 
     if self.progressive == "output_skip":
       h = pyramid
     else:
-      h = layers.norm_act(next(modules), h, act)     # norm_out
-      h = next(modules)(h)                           # conv_out
+      with span(res_spans[0]):
+        h = layers.norm_act(next(modules), h, act)   # norm_out
+        h = next(modules)(h)                         # conv_out
     assert next(modules, None) is None
 
     h = h.float()

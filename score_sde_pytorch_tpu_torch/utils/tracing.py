@@ -14,7 +14,8 @@ and its parts ``train.loss``, ``train.backward``, ``train.optimize``,
 ``train.ema``; ``eval.step``; ``data.wait``, the time the host waits for
 the input pipeline's next batch; ``graph.replay`` around each replayed
 resblock graph (``models/graphs.py``). ``count(name)`` adds to a count
-alone: ``graph.eager``, ``graph.capture``, ``graph.capture_failed``.
+alone: ``graph.eager``, ``graph.capture``, ``graph.capture_refused``,
+``graph.capture_failed``.
 ``counters()`` returns their totals.
 """
 from __future__ import annotations

@@ -4,14 +4,15 @@ On the CPU: every call that does not qualify runs the block eagerly, bit
 for bit, and the ``graph.replay`` and ``graph.eager`` counters say so; a
 call that qualifies goes to its graph. The conditions are taken one at a
 time: the card is faked where a case needs it, and the graph is a stand-in.
+A capture on a faked card without room is refused, and counted so.
 
 On the card, with cuDNN's deterministic algorithms: five train steps with
 the graphs and five eager ones from the same weights, batches, draws and
 dropout seed agree in each step's loss and gradients and in the parameters
 and the EMA after them; a batch of another shape, the eval loss and the PC
-sampler run eagerly. A capture that fails (a block that synchronizes, or a
-card without room for the graphs) leaves the steps eager and as the eager
-run's.
+sampler run eagerly. A capture that fails (a block that synchronizes) or
+is refused (a card without room for the graphs) leaves the steps eager and
+as the eager run's, each counted under its own name.
 """
 import contextlib
 import gc
@@ -147,6 +148,45 @@ def test_a_forward_on_the_cpu_captures_nothing():
   assert _counts()[0] == before[0]
   assert _counts()[1] == before[1] + N_BLOCKS
   assert model._graphs._graphed == {} and not model._graphs._eager
+
+
+def _count(name: str) -> int:
+  return tracing.counters().get(name, {}).get("count", 0)
+
+
+def test_a_capture_without_room_is_refused_and_the_model_stays_eager(
+    monkeypatch):
+  """The card faked, with 1 MiB free: the recording forward runs, the
+  capture is refused (``graph.capture_refused``, not
+  ``graph.capture_failed``), and every later block call runs eagerly, bit
+  for bit as on the CPU."""
+  config = configs.load_config(FLAGSHIP, TINY)
+  model = mutils.create_model(config, "cpu", torch.Generator().manual_seed(0))
+  model.train()
+  x = torch.rand(2, 3, 8, 8, generator=torch.Generator().manual_seed(1))
+  t = torch.full((2,), 0.5)
+  torch.manual_seed(2)
+  want = model(x, t)
+  monkeypatch.setattr(graphs, "_on_card", lambda x: True)
+  for name, value in (("current_stream", None), ("get_rng_state", None),
+                      ("set_rng_state", None), ("memory_allocated", 0),
+                      ("mem_get_info", (2 ** 20, 80 * 2 ** 30))):
+    monkeypatch.setattr(torch.cuda, name,
+                        lambda *args, value=value, **kwargs: value)
+  names = ("graph.capture", "graph.capture_refused", "graph.capture_failed")
+  before = [_count(name) for name in names]
+  model(x, t)  # its recording forward draws dropout masks of the CPU's
+  assert [_count(name) - n for name, n in zip(names, before)] == [1, 1, 0]
+  assert model._graphs._eager and model._graphs._graphed == {}
+  counts = _counts()
+  torch.manual_seed(2)
+  got = model(x, t)
+  assert [_count(name) - n for name, n in zip(names, before)] == [1, 1, 0]
+  assert tuple(a - b for a, b in zip(_counts(), counts)) == (0, N_BLOCKS)
+  assert torch.equal(got, want)
+  got.sum().backward()
+  assert all(p.grad is not None for p in model.parameters()
+             if p.requires_grad)
 
 
 def test_the_train_log_line_gives_the_replayed_share():
@@ -291,14 +331,14 @@ def test_a_capture_that_fails_leaves_the_steps_eager(cause, cuda_device,
   batches = [torch.rand(8, 3, 16, 16, device=cuda_device, generator=gen)
              for _ in range(2)]
   readings, counts = [], []
+  names = ("graph.capture_refused", "graph.capture_failed")
   for graphed in (True, False):
     run = _Run(cuda_device, graphed, unsafe_block=cause == "synchronizes")
-    before = tracing.counters().get("graph.capture_failed", {}).get("count", 0)
+    before = [_count(name) for name in names]
     readings.append([run.train(b) for b in batches])
-    counts.append(tracing.counters().get("graph.capture_failed", {}).get(
-        "count", 0) - before)
+    counts.append([_count(name) - n for name, n in zip(names, before)])
     assert run.model._graphs._graphed == {} and run.model._graphs._eager
-  assert counts == [1, 0]
+  assert counts == [[1, 0] if cause == "no_room" else [0, 1], [0, 0]]
   for (loss, grads), (loss_e, grads_e) in zip(*readings):
     assert _gap(loss, loss_e) <= 1e-6
     assert _worst_leaf(grads, grads_e) <= 1e-6

@@ -4,7 +4,8 @@ Under ``torch.profiler``, one train step, one eval step, one batch of the
 prefetching iterator and one 2-level PC chain of a tiny flagship NCSN++
 emit exactly the port's spans, each under its parent and with its args;
 every GroupNorm of the network sits in an ``op.norm_act`` span and every
-FIR filter in an ``op.fir`` span, whatever the resblocks and pyramids.
+FIR filter in an ``op.fir`` span, whatever the resblocks and pyramids;
+each U-Net level and each pyramid step sits in its own span.
 With no profiler recording, no ``record_function`` is entered and the
 counters still count; the train loop logs them per step.
 """
@@ -168,6 +169,43 @@ def test_every_norm_and_fir_filter_of_a_forward_is_spanned(extra):
   assert counts["ncsnpp.forward"] == 1
   assert counts["op.norm_act"] == norms > 0
   assert counts["op.fir"] == fir.call_count > 0
+
+
+LEVELS = ("model.ch_mult=(1,2,2)", "data.image_size=16")
+
+
+@pytest.mark.parametrize("extra", [
+    ("model.progressive=output_skip", "model.progressive_input=input_skip"),
+    (),  # the flagship's layout: a residual input pyramid, no output pyramid
+])
+def test_the_levels_and_pyramids_of_a_forward_are_spanned(extra):
+  """One forward at 16², 8² and 4²: each level's span opens on the way
+  down and on the way up, the first level's also around ``conv_in`` (and
+  the output head without an output pyramid), the last's around the
+  middle blocks; one ``ncsnpp.pyramid`` span per pyramid step, inside a
+  level's span."""
+  config = _config(*LEVELS, *extra)
+  model = mutils.create_model(config, "cpu", torch.Generator().manual_seed(0))
+  with torch.no_grad(), profile() as prof:
+    model(torch.rand(2, 3, 16, 16), torch.full((2,), 0.5))
+  names = {"ncsnpp.forward", "ncsnpp.pyramid", "ncsnpp.res16", "ncsnpp.res8",
+           "ncsnpp.res4"}
+  counts, parents = collections.Counter(), collections.defaultdict(set)
+  for e in prof.events():
+    if e.name in names:
+      counts[e.name] += 1
+      parent = e.cpu_parent
+      while parent is not None and parent.name not in names:
+        parent = parent.cpu_parent
+      parents[e.name].add(None if parent is None else parent.name)
+  head = config.model.progressive != "output_skip"
+  assert counts == {"ncsnpp.forward": 1, "ncsnpp.res16": 3 + head,
+                    "ncsnpp.res8": 2, "ncsnpp.res4": 3,
+                    "ncsnpp.pyramid": 2 + 3 * (not head)}
+  assert parents["ncsnpp.pyramid"] <= {"ncsnpp.res16", "ncsnpp.res8",
+                                       "ncsnpp.res4"}
+  for name in ("ncsnpp.res16", "ncsnpp.res8", "ncsnpp.res4"):
+    assert parents[name] == {"ncsnpp.forward"}
 
 
 def test_without_a_profiler_no_span_is_entered_and_the_counters_count(
