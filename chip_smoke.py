@@ -10,8 +10,8 @@ fails the run if it fails (about 17 to 20 minutes on one H100; a slower
 host adds up to a third):
 
 1. the card's name and power limit; the kernels built from
-   score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu;
-   one nvcc each) and the host library from
+   score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu,
+   group_norm.cu; one nvcc each) and the host library from
    score_sde_pytorch_tpu_torch/native/ (g++), all started together, with
    build times and ptxas reports;
    no attention kernel may spill registers, and each must hold tensor-core
@@ -31,6 +31,15 @@ host adds up to a third):
    a slab's N_q = N / 2 queries against N_kv = N keys;
 4. [fused-act] the fused bias + leaky ReLU kernels (forward, backward)
    against their plain versions, fp32 and bf16, and times;
+4a. [group-norm] the GroupNorm + swish kernels (forward, backward; the
+   on-chip and the split path): each path's calls against the GroupNorm
+   calls of a forward and a backward of the flagship and of the church
+   256² model (every call through a kernel); at the benchmark cells'
+   largest calls, group_norm_act with autograd against the plain versions,
+   fp32 within 1e-5 and bf16 within one ulp of each tensor's largest
+   entry, act None and swish, and ms per call beside the byte bound, the
+   plain composite and F.group_norm + F.silu (the library's calls, timed
+   only);
 5. [forward] the full-width flagship NCSN++
    (score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py)
    forward on the card through the kernel against through the plain
@@ -204,6 +213,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -249,6 +259,21 @@ BWD_SHAPES = [(128, 256, 256), (128, 16, 256), (2, 1024, 256),
 BWD_TOL = 5e-4               # the JAX package's gradient bound
 ACT_SHAPES = [(128, 256, 16, 16), (128, 128, 32, 32)]
 ACT_TOL = 1e-6
+GN_SOURCE = "score_sde_pytorch_tpu_torch/ops/csrc/group_norm.cu"
+GN_REPLACES = "none: the JAX package's GroupNorm + swish is XLA's"
+# The largest GroupNorm + swish calls of each benchmark cell, 32 groups:
+# cell 3 (PC at 1024, 32² and 16²), cell 1 (train at 128) and cell 2
+# (church 256² train at 24: split at 256², 128², 64²; on chip at 32²).
+GN_SHAPES = [("cell 3", (1024, 128, 32, 32)), ("cell 3", (1024, 256, 16, 16)),
+             ("cell 1", (128, 256, 32, 32)), ("cell 1", (128, 256, 8, 8)),
+             ("cell 2", (24, 256, 256, 256)), ("cell 2", (24, 128, 128, 128)),
+             ("cell 2", (24, 256, 64, 64)), ("cell 2", (24, 512, 32, 32))]
+GN_TOL = 1e-5                # fp32, of each tensor's largest entry
+GN_BF16_TOL = 2.0 ** -7      # one bf16 ulp of it (dweight, dbias too)
+# GroupNorm calls of one NCSN++ resblock (GroupNorm_0 and GroupNorm_1), the
+# blocks that a train step on one card replays as CUDA graphs.
+GN_PER_RESBLOCK = 2
+CHURCH_H100 = os.path.join(CONFIGS, "h100", "church_256_ncsnpp_h100.py")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
 # tensor cores' TF32 rate, the card's fastest on fp32 inputs, their bf16
 # rate, and HBM.
@@ -913,6 +938,168 @@ def phase_fused_act(torch, act) -> tuple:
         records[i] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                       "bound_ms": bound_ms, "bound_by": bound_by}
   for record, err in zip(records, worst):
+    record["max_abs_err"] = err
+  return tuple(records)
+
+
+def _gn_err(got, want) -> float:
+  """The largest difference, as a share of ``want``'s largest entry."""
+  return _max_err(got, want) / max(want.double().abs().max().item(), 1e-30)
+
+
+def _gn_inputs(torch, shape, gen, dtype=None):
+  x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.5
+  dy = torch.randn(shape, device="cuda", generator=gen)
+  w = 1 + 0.3 * torch.randn(shape[1], device="cuda", generator=gen)
+  b = 0.3 * torch.randn(shape[1], device="cuda", generator=gen)
+  if dtype is not None:
+    x, dy = x.to(dtype), dy.to(dtype)
+  return x, w, b, dy
+
+
+def _gn_gates(torch, gn, shape, dtype, act, gen) -> tuple:
+  """``gn.group_norm_act`` with autograd, as the models call it, against
+  the plain versions at ``shape``: y, dx, dweight and dbias within GN_TOL
+  (fp32) or GN_BF16_TOL (bf16) of each tensor's largest entry. Returns the
+  largest absolute errors of y and of the three gradients."""
+  x, w, b, dy = _gn_inputs(torch, shape, gen, dtype)
+  leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+  y = gn.group_norm_act(*leaves, 32, 1e-6, act)
+  y.backward(dy)
+  got = (y.detach(),) + tuple(t.grad for t in leaves)
+  del y, leaves
+  mean, var = gn.group_norm_stats(x, 32)
+  want = (gn.group_norm_act_forward(x, w, b, 32, 1e-6, act),) + (
+      gn.group_norm_act_backward(x, w, b, 32, 1e-6, act, mean, var, dy))
+  torch.cuda.synchronize()
+  tol = GN_TOL if dtype == torch.float32 else GN_BF16_TOL
+  for name, g, e in zip(("y", "dx", "dweight", "dbias"), got, want):
+    err = _gn_err(g, e)
+    check(err <= tol, f"[group-norm] {name} {shape} {dtype} {act}: "
+          f"{err:.3g} > {tol:.1e}")
+  errs = [_max_err(g, e) for g, e in zip(got, want)]
+  return errs[0], max(errs[1:])
+
+
+def _gn_count(torch, gn, layers, model, run) -> tuple:
+  """GroupNorm calls of ``model`` in ``run()`` and the kernels' path
+  counts added meanwhile."""
+  calls = [0]
+  hooks = [m.register_forward_pre_hook(
+      lambda *_: calls.__setitem__(0, calls[0] + 1))
+           for m in model.modules() if isinstance(m, layers.GroupNorm)]
+  before = dict(gn.group_norm_launches)
+  try:
+    run()
+    torch.cuda.synchronize()
+  finally:
+    for h in hooks:
+      h.remove()
+  return calls[0], {k: v - before[k] for k, v in
+                    gn.group_norm_launches.items()}
+
+
+def phase_group_norm(torch, gn, layers) -> tuple:
+  """GroupNorm + swish kernels: each path's calls against a forward and a
+  backward of the flagship and of the church 256² model (every GroupNorm
+  call through a kernel); at the benchmark cells' largest calls
+  (GN_SHAPES, both paths), ``group_norm_act`` with autograd against the
+  plain versions (fp32 within 1e-5 and bf16 within one ulp of each
+  tensor's largest entry; act None and swish), and ms per call beside the
+  byte bound, the plain composite and F.group_norm + F.silu (the
+  library's calls, timed only). Returns the forward's and the backward's
+  records at the first shape, with the largest fp32 absolute errors."""
+  import torch.nn.functional as F
+  from score_sde_pytorch_tpu_torch import configs
+  from score_sde_pytorch_tpu_torch.models import utils as mutils
+  gen = torch.Generator(device="cuda").manual_seed(9)
+  for path, overrides, batch in ((FLAGSHIP, [], SMOKE_BATCH),
+                                 (CHURCH_H100, [], 2)):
+    config = configs.load_config(path, overrides)
+    model = mutils.create_model(config, "cuda",
+                                torch.Generator().manual_seed(0)).eval()
+    size = config.data.image_size
+    x = torch.rand(batch, 3, size, size, device="cuda", generator=gen)
+    t = torch.rand(batch, device="cuda", generator=gen)
+    with torch.no_grad():
+      calls, ran = _gn_count(torch, gn, layers, model,
+                             lambda: model(x, _labels(config, t)))
+    check(ran["onchip_fwd"] + ran["split_fwd"] == calls > 0
+          and ran["onchip_bwd"] + ran["split_bwd"] == 0,
+          f"[group-norm] {calls} GroupNorm calls, kernels {ran}")
+    xr = x.clone().requires_grad_()
+    calls_g, ran_g = _gn_count(
+        torch, gn, layers, model,
+        lambda: model(xr, _labels(config, t)).square().mean().backward())
+    check(calls_g == calls and ran_g["onchip_fwd"] == ran["onchip_fwd"]
+          and ran_g["split_fwd"] == ran["split_fwd"]
+          and ran_g["onchip_bwd"] == ran["onchip_fwd"]
+          and ran_g["split_bwd"] == ran["split_fwd"],
+          f"[group-norm] {calls_g} GroupNorm calls with gradients, kernels "
+          f"{ran_g}")
+    say(f"[group-norm] {os.path.basename(path)} at B={batch}: {calls} "
+        f"GroupNorm calls a forward, all through the kernels: {ran}; "
+        f"backward: on-chip {ran_g['onchip_bwd']}, split "
+        f"{ran_g['split_bwd']}")
+    del model, xr
+
+  records = [None, None]
+  # The largest absolute errors of the forward and the backward, in fp32
+  # (the other kernels' rows give fp32's) and in bf16.
+  worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+  for cell, shape in GN_SHAPES:
+    for dtype, act in itertools.product(worst, gn.ACTS):
+      errs = _gn_gates(torch, gn, shape, dtype, act, gen)
+      worst[dtype] = [max(old, new) for old, new in zip(worst[dtype], errs)]
+    x, w, b, dy = _gn_inputs(torch, shape, gen)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    path = "on-chip" if gn._onchip(x, 32, None) else "split"
+    y, stats = gn._launch_forward(x, w, b, 32, 1e-6, "swish", None)
+    fns = {
+        "kernel": (lambda: gn._launch_forward(x, w, b, 32, 1e-6, "swish",
+                                              None),
+                   lambda: gn._launch_backward(x, w, b, 32, 1e-6, "swish",
+                                               None, stats, dy)),
+        "plain": (lambda: gn.group_norm_act_forward(x, w, b, 32, 1e-6,
+                                                    "swish"),
+                  lambda: torch.autograd.grad(gn.group_norm_act_forward(
+                      *leaves, 32, 1e-6, "swish"), leaves, dy)),
+        "library": (lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)),
+                    lambda: torch.autograd.grad(F.silu(F.group_norm(
+                        leaves[0], 32, leaves[1], leaves[2], 1e-6)), leaves,
+                        dy))}
+    ms = {}
+    for name, (fwd, fwd_bwd) in fns.items():
+      ms[name] = time_ms(torch, fwd, iters=20)
+      # The plain and library backward: their forward and backward less
+      # the forward; the kernel's backward alone.
+      both = time_ms(torch, fwd_bwd, iters=20)
+      ms[name + "_bwd"] = both if name == "kernel" else both - ms[name]
+    # Forward: reads x, writes y; backward: reads x and dy, writes dx.
+    nbytes = x.numel() * x.element_size()
+    fwd_bound, _ = bound(0.0, 2 * nbytes)
+    bwd_bound, _ = bound(0.0, 3 * nbytes)
+    say(f"[group-norm] {cell} {shape} fp32 swish ({path}): forward ms kernel "
+        f"{ms['kernel']:.4f} plain {ms['plain']:.4f} library "
+        f"{ms['library']:.4f} bound {fwd_bound:.4f} (bytes), share "
+        f"{fwd_bound / ms['kernel']:.3f} | backward ms kernel "
+        f"{ms['kernel_bwd']:.4f} plain {ms['plain_bwd']:.4f} library "
+        f"{ms['library_bwd']:.4f} bound {bwd_bound:.4f} (bytes), share "
+        f"{bwd_bound / ms['kernel_bwd']:.3f}")
+    if records[0] is None:
+      for i, (key, bound_ms) in enumerate((("kernel", fwd_bound),
+                                           ("kernel_bwd", bwd_bound))):
+        suffix = key[len("kernel"):]
+        records[i] = {"ms": ms[key], "plain_ms": ms["plain" + suffix],
+                      "library_ms": ms["library" + suffix],
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+    del x, dy, leaves, y, stats
+  say(f"[group-norm] group_norm_act with autograd vs plain at the cells' "
+      f"shapes, fp32 and bf16, act None and swish: largest absolute error "
+      f"forward {worst[torch.float32][0]:.3g} (bf16 "
+      f"{worst[torch.bfloat16][0]:.3g}), backward "
+      f"{worst[torch.float32][1]:.3g} (bf16 {worst[torch.bfloat16][1]:.3g})")
+  for record, err in zip(records, worst[torch.float32]):
     record["max_abs_err"] = err
   return tuple(records)
 
@@ -3923,6 +4110,7 @@ def main() -> int:
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   from score_sde_pytorch_tpu_torch.ops import attention as attn
   from score_sde_pytorch_tpu_torch.ops import fused_act as act
+  from score_sde_pytorch_tpu_torch.ops import group_norm as gn
 
   card_line = card()
   say(f"[card] {card_line}; torch {torch.__version__}, CUDA "
@@ -3932,7 +4120,7 @@ def main() -> int:
   def lap(what: str) -> None:
     say(f"[time] {what} done at {time.perf_counter() - start:.1f} s")
 
-  phase_build(attn, act)
+  phase_build(attn, act, gn)
 
   defaults = _tf32_off(torch)
   record = phase_kernel(torch, attn)
@@ -3945,6 +4133,12 @@ def main() -> int:
   phase_kernel_bf16(torch, attn, card_line)
   record_act, record_act_bwd = phase_fused_act(torch, act)
   lap("the kernel phases")
+  record_gn, record_gn_bwd = phase_group_norm(torch, gn, layers)
+  lap("[group-norm]")
+  # The kernels' row counts the model runs from here on, as the attention
+  # rows do: the counters restart after [group-norm]'s own calls.
+  gn.group_norm_launches.update(dict.fromkeys(gn.group_norm_launches, 0))
+  gn_replays = _graph("replay")
 
   config = configs.load_config(
       FLAGSHIP, [f"model.num_scales={SMOKE_SCALES}",
@@ -4043,6 +4237,14 @@ def main() -> int:
   check(not leaked, f"the port imported JAX, the JAX package or "
         f"TensorFlow: {leaked[:5]}")
 
+  # GroupNorm calls of every model run after [group-norm] in this process
+  # (the ddp and space ranks run in processes of their own and are left
+  # out): those through the wrapper, and a replayed resblock's at each
+  # replay, forward and backward, which the counters saw only at capture.
+  gn_replays = GN_PER_RESBLOCK * (_graph("replay") - gn_replays)
+  gn_calls = [gn.group_norm_launches[f"onchip_{d}"]
+              + gn.group_norm_launches[f"split_{d}"] + gn_replays
+              for d in ("fwd", "bwd")]
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
        launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
@@ -4061,6 +4263,10 @@ def main() -> int:
        record_act),
       ("fused_leaky_relu_backward", ACT_SOURCE, TPU_ACT, act_launches[1],
        record_act_bwd),
+      ("group_norm_forward", GN_SOURCE, GN_REPLACES, gn_calls[0],
+       record_gn),
+      ("group_norm_backward", GN_SOURCE, GN_REPLACES, gn_calls[1],
+       record_gn_bwd),
   ]
   say(json.dumps({"kernels": [{
       "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -38,17 +38,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from score_sde_pytorch_tpu_torch.ops import attention as attention_ops
-from score_sde_pytorch_tpu_torch.parallel import distributed, spatial
+from score_sde_pytorch_tpu_torch.ops import group_norm as group_norm_ops
+from score_sde_pytorch_tpu_torch.parallel import spatial
 from score_sde_pytorch_tpu_torch.utils import tracing
 
 
-def _swish(x: torch.Tensor) -> torch.Tensor:
-  """``x·sigmoid(x)``. Below fp32 it is computed as JAX's ``jax.nn.silu``
-  lowers, ``x · (1 / (1 + exp(-x)))`` with every step rounded to ``x``'s
-  dtype."""
-  if x.dtype == torch.float32:
-    return F.silu(x)
-  return x * (1 / (1 + torch.exp(-x)))
+_swish = group_norm_ops.swish
 
 
 def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -265,8 +260,11 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
 def norm_act(norm: nn.Module, x: torch.Tensor,
              act: Optional[Callable] = None) -> torch.Tensor:
   """``act(norm(x))``, or ``norm(x)`` without ``act``, as the
-  ``op.norm_act`` span (``utils/tracing.py``)."""
+  ``op.norm_act`` span (``utils/tracing.py``). A :class:`GroupNorm`
+  applies swish itself (one kernel on the card)."""
   with tracing.span("op.norm_act"):
+    if isinstance(norm, GroupNorm) and act is _swish:
+      return norm(x, "swish")
     h = norm(x)
     return h if act is None else act(h)
 
@@ -278,7 +276,10 @@ class GroupNorm(nn.Module):
   E[x²] − mean² in fp32 over each group's channels and pixels, the variance
   clamped at 0 before the rsqrt, the affine folded into one per-(batch,
   channel) ``x * a + b`` in fp32, and the result cast back to the input
-  dtype. Parameters are ``weight`` and ``bias``, as in ``nn.GroupNorm``."""
+  dtype. Parameters are ``weight`` and ``bias``, as in ``nn.GroupNorm``.
+  ``forward(x, act)`` applies ``act`` (None or ``"swish"``) after it:
+  ``ops.group_norm.group_norm_act``, the plain version on the CPU and the
+  Hopper kernels on the card."""
 
   def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
     super().__init__()
@@ -289,27 +290,11 @@ class GroupNorm(nn.Module):
     self.weight = nn.Parameter(torch.ones(num_channels))
     self.bias = nn.Parameter(torch.zeros(num_channels))
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    b, c = x.shape[:2]
-    g = self.num_groups
-    xg = x.reshape(b, g, -1).float()
-    group = spatial.group()
-    if group is None:
-      mean = xg.mean(dim=-1, keepdim=True)
-      var = (xg * xg).mean(dim=-1, keepdim=True) - mean * mean
-    else:
-      # A slab: each group's sum and sum of squares over the whole image.
-      sums = spatial.all_reduce_sum(
-          torch.stack([xg.sum(dim=-1), (xg * xg).sum(dim=-1)]), group)
-      count = xg.shape[-1] * distributed.group_size(group)
-      mean = (sums[0] / count)[..., None]
-      var = (sums[1] / count)[..., None] - mean * mean
-    rstd = torch.rsqrt(var.clamp_min(0.0) + self.eps)          # [B, G, 1]
-    scale = self.weight.float().reshape(g, c // g)
-    a = rstd * scale                                            # [B, G, C/G]
-    shift = self.bias.float().reshape(g, c // g) - mean * rstd * scale
-    shape = (b, c) + (1,) * (x.dim() - 2)
-    return (x.float() * a.reshape(shape) + shift.reshape(shape)).to(x.dtype)
+  def forward(self, x: torch.Tensor,
+              act: Optional[str] = None) -> torch.Tensor:
+    return group_norm_ops.group_norm_act(x, self.weight, self.bias,
+                                         self.num_groups, self.eps, act,
+                                         spatial.group())
 
 
 class NIN(nn.Module):

@@ -34,6 +34,7 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.sde",
     "score_sde_pytorch_tpu_torch.ops.attention",
     "score_sde_pytorch_tpu_torch.ops.fused_act",
+    "score_sde_pytorch_tpu_torch.ops.group_norm",
     "score_sde_pytorch_tpu_torch.ops.build",
     "score_sde_pytorch_tpu_torch.ops.upfirdn2d",
     "score_sde_pytorch_tpu_torch.models",
