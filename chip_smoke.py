@@ -1,120 +1,91 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (score_sde_pytorch_tpu_torch) on one
-NVIDIA GPU. Run it from the root of a checkout:
+NVIDIA GPU: every CLI mode, model family, data source and parallel layout
+at full width, each held to its gates. Run it from the root of a
+checkout:
 
     python3 chip_smoke.py
 
 It needs a CUDA device, the CUDA toolkit (nvcc) and g++, and imports
-nothing of JAX, of the JAX package or of TensorFlow. Phases, each of which
-fails the run if it fails (about 17 to 20 minutes on one H100; a slower
-host adds up to a third):
+nothing of JAX, of the JAX package or of TensorFlow. The kernels alone
+are held to their plain versions by the ``cuda``-marked tests
+(``pytest tests/test_torch_{attention,fused_act,group_norm,graphs}.py -m
+cuda``) and timed by ``python -m score_sde_pytorch_tpu_torch.ops.
+bench_kernels``; the benchmark's cells (``bench_port/``) time the train
+step and the sampler. This script times nothing. Its phases, each of
+which fails the run if it fails (about 14 minutes on one H100):
 
-1. the card's name and power limit; the kernels built from
-   score_sde_pytorch_tpu_torch/ops/csrc/ (flash_attention.cu, fused_act.cu,
-   group_norm.cu; one nvcc each) and the host library from
-   score_sde_pytorch_tpu_torch/native/ (g++), all started together, with
-   build times and ptxas reports;
-   no attention kernel may spill registers, and each must hold tensor-core
-   (HMMA) instructions where cuobjdump can show them;
-2. [kernel] the attention forward kernel against the plain PyTorch
-   attention on the card, at the main path's shapes and a few more: fp32
-   (TF32 off), bf16, logits x30; the times of the kernel, the plain version
-   and F.scaled_dot_product_attention (the library's one call, timed only)
-   beside the card's bound;
-3. [kernel-bwd] the attention backward kernels against the plain backward
-   (and autograd through the plain attention) at the train path's shapes
-   and a few more, the same three cases, bitwise repeatability, and times
-   (with forward + backward of the kernels and of the library's call);
-   then [kernel-512] and [kernel-bwd-512], both again at C = 512 (the
-   256² DDPM's and the 1024² NCSN++'s attention) and C = 384; each phase
-   (and [kernel-bf16], 18) also at the space axis's rows of two lengths,
-   a slab's N_q = N / 2 queries against N_kv = N keys;
-4. [fused-act] the fused bias + leaky ReLU kernels (forward, backward)
-   against their plain versions, fp32 and bf16, and times;
-4a. [group-norm] the GroupNorm + swish kernels (forward, backward; the
-   on-chip and the split path): each path's calls against the GroupNorm
-   calls of a forward and a backward of the flagship and of the church
-   256² model (every call through a kernel); at the benchmark cells'
-   largest calls, group_norm_act with autograd against the plain versions,
-   fp32 within 1e-5 and bf16 within one ulp of each tensor's largest
-   entry, act None and swish, and ms per call beside the byte bound, the
-   plain composite and F.group_norm + F.silu (the library's calls, timed
-   only);
-5. [forward] the full-width flagship NCSN++
+1. [card] the card's name and power limit, and torch's versions;
+2. [forward] (TF32 off) the full-width flagship NCSN++
    (score_sde_pytorch_tpu_torch/configs/ve/cifar10_ncsnpp_continuous.py)
    forward on the card through the kernel against through the plain
-   attention, and against the CPU;
-6. [grad] one loss of that model (injected t and z) and its parameter
-   gradients through the kernels against through the plain attention, and
-   the loss against the CPU's;
-6a. [learn] (PyTorch's default TF32 settings from here on): the
-   gaussian learning proof of score_sde_pytorch_tpu_torch/tools/
-   learning_proof.py cut to 500 of its 3000 steps: the flagship at full
-   width and batch 128 trained on N(0.5, 0.2²) pixels by the tool's own
-   functions, the last 10 losses' mean under half the first step's, the
-   EMA score's rel-L2 against the closed form at t = 0.5 and 0.9 under
-   1.5 x the full run's at step 500, and 6 forward and 6 backward
-   attention calls per train step;
-7. [sample] the user's entry point: a reference-schema checkpoint of that
-   model in a temporary workdir, then ``main --mode sample`` in process at
-   full width (num_scales cut to 50), the samples checked, and the count
-   of kernel launches held to 6 attention calls x NFE x rounds; then
-   [sample-profile], the sampler at batch 64: ms per NFE, device idle share
-   and the attention kernel's share of device time;
-8. [train] ``main --mode train`` in process at full width and batch 128
+   attention, and against the CPU; [grad] one loss of that model (injected
+   t and z) and its parameter gradients through the kernels against
+   through the plain attention, and the loss against the CPU's;
+   [vp-forward], [vp-grad] the same for the full-width DDPM++ of
+   configs/vp/cifar10_ddpmpp_continuous.py, a VP and a subVP loss;
+3. [learn] (PyTorch's default TF32 settings from here on): the gaussian
+   learning proof of score_sde_pytorch_tpu_torch/tools/learning_proof.py
+   cut to 500 of its 3000 steps: the flagship at full width and batch 128
+   trained on N(0.5, 0.2²) pixels by the tool's own functions, the last
+   10 losses' mean under half the first step's, the EMA score's rel-L2
+   against the closed form at t = 0.5 and 0.9 under 1.5 x the full run's
+   at step 500, and 6 forward and 6 backward attention calls per train
+   step;
+4. [sample] the user's entry point: a reference-schema checkpoint of the
+   flagship in a temporary workdir, then ``main --mode sample`` in process
+   at full width (num_scales cut to 25), the samples checked, and the
+   kernel launches held to 6 attention calls x NFE x rounds; [sampler] the
+   sampler at batch 64 as run_lib builds it: its samples on the card and
+   finite, 6 launches per counted evaluation;
+5. [train] ``main --mode train`` in process at full width and batch 128
    (10 steps with snapshot sampling, then a resume to step 20), its
-   checkpoints, samples and launch counts checked; then the train step's
-   time, images/s, peak memory and device idle share at batch 128;
-9. [eval] ``main --mode eval`` in process at full width on the checkpoint
-   that [train] wrote, with the eval loss, bits/dim (probability-flow ODE,
-   Hutchinson divergence by vjp through both attention kernels) and
-   sampling (the ODE sampler) -> InceptionV3 -> FID/IS/KID, on a small
-   ``.npz`` test split, seeded random Inception weights and dataset
-   statistics made from that split: its files, finite scores, and the
-   kernel launches (6 forward and 6 backward attention calls per drift
-   evaluation of the bits/dim stage) checked; then, with TF32 off, the
-   divergence through the kernels against through the plain attention and
-   the card's Inception features against the CPU's; the time of one
-   augmented drift evaluation (forward + vjp) against the plain forward,
-   the attention kernels' share of its device time, the peak memory of a
-   chunked evaluation at batch 1024, and the bits/dim with TF32 on vs off;
-   then [stats]: tools/compute_dataset_stats.py on that split with those
+   checkpoints, samples, launch counts and replayed resblock graphs;
+   [eval] ``main --mode eval`` on the checkpoint that [train] wrote, with
+   the eval loss, bits/dim (probability-flow ODE, Hutchinson divergence by
+   vjp through both attention kernels) and sampling (the ODE sampler) ->
+   InceptionV3 -> FID/IS/KID, on a small ``.npz`` test split, seeded
+   random Inception weights and dataset statistics made from that split:
+   its files, finite scores and the kernel launches (6 forward and 6
+   backward attention calls per drift evaluation of the bits/dim stage);
+   [stats] tools/compute_dataset_stats.py on that split with those
    weights, its mu and sigma within 1e-5 of run_inception's on the card;
-   [debug]: debug.py on [train]'s checkpoint (PYTHONBREAKPOINT=0), the step
-   and finite score statistics;
-9a. [uri]: ``myfs://`` registered onto a temporary directory, then the
+   [eval-check] with TF32 off, the divergence through the kernels against
+   through the plain attention and the card's Inception features against
+   the CPU's, the bits/dim with TF32 on and off, and the peak memory of a
+   chunked drift evaluation at batch 1024; [debug] debug.py on [train]'s
+   checkpoint (PYTHONBREAKPOINT=0), the step and finite score statistics;
+6. [uri] ``myfs://`` registered onto a temporary directory, then the
    flagship's ``main --mode train`` at full width and batch 32 on a
    ``myfs://`` workdir (2 steps with snapshot sampling and
    ``training.trace_steps=2``, a traced resume to 4), ``--mode eval`` (the
    loss) and ``--mode sample``: every artifact under the mirror root, none
    under a local ``myfs:``, both traces naming the attention forward and
    backward kernels, and an unregistered ``gs://`` workdir raising before
-   any step; [demo]: ``score_sde_pytorch_tpu_torch.demo`` at the flagship's
+   any step; [demo] ``score_sde_pytorch_tpu_torch.demo`` at the flagship's
    full width with random weights (num_scales 20): PC, ODE, DPM-Solver++,
    bits/dim, inpainting and colorization, its five PNGs and finite
    bits/dim;
-9b. data parallelism over torch.distributed, each rank a process of this
+7. data parallelism over torch.distributed, each rank a process of this
    script (``--ddp-worker``) that reports its counts, started by torchrun
    for [ddp-nccl] and with torchrun's environment for the two-rank phases:
-   [ddp-2rank] two gloo ranks sharing cuda:0, started from an
-   empty kernel build directory (both ranks build at once), TF32 off: (a)
-   2 flagship train steps at global batch 128 held to one process's on the
-   same batches (weights within 1e-5, losses within 1e-5 relative) with
-   the ranks' weights bit-equal, the step's time and the gloo all-reduce
-   of the gradients; (b) PC sampling at global batch 16 and (c) one RK45
-   bits/dim batch of 16, each held to one process's (samples within 1e-4
-   of their largest magnitude, bits/dim within 1e-4, the same NFE); (d)
-   the church NCSN++ with remat, 2 steps at global batch 4, finite and
-   bit-equal across the ranks; [ddp-nccl] ``main --mode train`` under
-   torchrun on NCCL at world size 1, the flagship at batch 128, 4 steps
-   and a resume to 6, its logged ms/step beside the same run's without a
-   group in the smoke's process and [train]'s; [ddp-cli] two
-   gloo ranks on the card run the flagship's ``main --mode train`` (rank
-   0's sample grid), a resume, ``--mode eval`` (loss, bits/dim, PC
-   sampling; the samples gathered to the whole global batch) and ``--mode
-   sample``, each a launch of its own. Every rank's
-   attention launches are held to 6 per evaluation (4 on the church) and
-   the backward calls to as many per train step and drift evaluation;
+   [ddp-2rank] two gloo ranks sharing cuda:0, started from an empty kernel
+   build directory (both ranks build at once), TF32 off: (a) 2 flagship
+   train steps at global batch 128 held to one process's on the same
+   batches (weights within 1e-5, losses within 1e-5 relative) with the
+   ranks' weights bit-equal; (b) PC sampling at global batch 16 and (c)
+   one RK45 bits/dim batch of 16, each held to one process's (samples
+   within 1e-4 of their largest magnitude, bits/dim within 1e-4, the same
+   NFE); (d) the church NCSN++ with remat, 2 steps at global batch 4,
+   finite and bit-equal across the ranks; [ddp-nccl] ``main --mode
+   train`` under torchrun on NCCL at world size 1, the flagship at batch
+   128, 4 steps and a resume to 6, and the same 4 steps without a group;
+   [ddp-cli] two gloo ranks on the card run the flagship's ``main --mode
+   train`` (rank 0's sample grid), a resume, ``--mode eval`` (loss,
+   bits/dim, PC sampling; the samples gathered to the whole global batch)
+   and ``--mode sample``, each a launch of its own. Every rank's attention
+   launches are held to 6 per evaluation (4 on the church) and the
+   backward calls to as many per train step and drift evaluation;
    [space-2rank] two gloo ranks on cuda:0 laid out as a (1, 2) grid by
    ``parallel.init_grid``, each image's height split over them, TF32 off:
    the church 256² spatial-sharding file at full width in fp32 at global
@@ -123,79 +94,69 @@ host adds up to a third):
    largest entry or 10 times the distance of the same steps split over the
    batch where that is larger, the weights within 1e-5 where the two runs'
    gradients agree to 10% and within 2 x steps x lr where they do not, an
-   eval-loss step, the ranks' weights bit-equal), the same file in bf16 as shipped (one step, the loss
-   within 1e-2) and the 1024² file in fp32 at batch 2 (the gates of the
-   first); per rank the attention launches at the slab's lengths (4 per
-   church forward: three [4, 128 | 256, 256], one [4, 8 | 16, 256]; 3 per
-   1024² forward at C = 512: 128 | 256 and 32 | 64), peak memory beside
-   one process's, ms/step and the halo, gather and all-reduce bytes;
-10. [vp-forward], [vp-grad] (TF32 off, beside 5 and 6): the full-width
-   DDPM++ of score_sde_pytorch_tpu_torch/configs/vp/
-   cifar10_ddpmpp_continuous.py through the kernels against through the
-   plain attention and the CPU, and a VP and a subVP loss's gradients;
-11. [vp-train], [vp-sample], [vp-eval]: ``main --mode train`` on that
-   config at batch 128 (10 steps, Euler-Maruyama snapshot grid, step time
-   and profile), ``--mode sample`` and ``--mode eval`` (loss, bits/dim over
-   the one batch of the train split) on its checkpoint;
-12. [ddpm]: the full-width DDPM of vp/ddpm/cifar10.py through the kernel
-   against the plain attention (TF32 off), then ``main --mode sample`` with
-   ancestral sampling from its seeded checkpoint;
-13. [samplers]: PC reverse diffusion + Langevin, PC none + ALD, heun and
-   DPM-Solver++ (deterministic and stochastic) on the DDPM++ at batch 64;
-14. [vp-profile]: Euler-Maruyama at batch 64: ms per network evaluation,
-   the idle share and the attention kernel's share of device time;
-15. [ddpm-256*]: the full-width vp/ddpm/church.py (attention at C = 512):
+   eval-loss step, the ranks' weights bit-equal), the same file in bf16 as
+   shipped (one step, the loss within 1e-2) and the 1024² file in fp32 at
+   batch 2 (the gates of the first); per rank the attention launches at
+   the slab's lengths (4 per church forward: three [4, 128 | 256, 256],
+   one [4, 8 | 16, 256]; 3 per 1024² forward at C = 512: 128 | 256 and
+   32 | 64), peak memory beside one process's, and the halo, gather and
+   all-reduce bytes;
+8. [vp-train], [vp-sample], [vp-eval]: ``main --mode train`` on the VP
+   DDPM++ config at batch 128 (10 steps, Euler-Maruyama snapshot grid),
+   ``--mode sample`` and ``--mode eval`` (loss, bits/dim over the one
+   batch of the train split) on its checkpoint; [ddpm] the full-width DDPM
+   of vp/ddpm/cifar10.py through the kernel against the plain attention
+   (TF32 off), then ``main --mode sample`` with ancestral sampling from
+   its seeded checkpoint; [samplers] PC reverse diffusion + Langevin, PC
+   none + ALD, heun and DPM-Solver++ (deterministic and stochastic) on the
+   DDPM++ at batch 64; [vp-sampler] Euler-Maruyama at batch 64 as
+   [sampler];
+9. [ddpm-256*]: the full-width vp/ddpm/church.py (attention at C = 512):
    forward and DDPM-loss gradient through the kernels against the plain
    attention (TF32 off), ``main --mode train`` at batch 8 for 5 steps and
    ``--mode sample`` (ancestral, num_scales 25) on its checkpoint;
-16. [hires-*], [controllable]: the full-width
+10. [hires-*], [controllable]: the full-width
    ve/church_ncsnpp_continuous.py (output and input pyramids, remat):
    ``main --mode sample``; at unit gain, inpainting and colorization at
    batch 4 (known half and gray channel kept within 1e-3), and the forward
    and gradient through the kernels against the plain attention (TF32
    off); the multiattn file's forward (attention at 32² too); ``main
    --mode train`` at batch 16 (its config: 64) for 2 steps and a resume
-   to 4; and the train step's peak memory with remat at batch 64 and
-   without it at the largest batch that fits;
-17. [hires-1024]: the full-width ve/celebahq_ncsnpp_continuous.py (1024²,
+   to 4; and the train step's peak memory and launches with remat at
+   batch 64 and without it at the largest batch that fits;
+11. [hires-1024]: the full-width ve/celebahq_ncsnpp_continuous.py (1024²,
    attention at C = 512): forward through the kernels against the plain
    attention, and the train step with remat at its batch of 8 with its
-   peak memory, driven directly;
-18. [kernel-bf16] (with the kernel phases, TF32 off): the attention
-   kernels in bf16 at the bf16 files' shapes, forward and backward, held
-   to the plain bf16 version and fp64 and timed against SDPA and the
-   bound at bf16's peak;
-19. [ncsn*], [ncsnv2*]: NCSN v1 (ve/ncsn/cifar10.py) and NCSNv2
-   (ve/ncsnv2/cifar10.py, bedroom.py, an ncsnv2_256 override) at full
-   width: forwards against the CPU, ``main --mode train`` and ALD
-   ``main --mode sample`` (NCSN v1 at 10 scales x 10 steps, cut from 100),
-   one sampler step's peak memory at batch 1024 (30 Langevin steps),
-   the 128² train step;
-20. [bf16-church*], [bf16-1024]: the two bf16 files: ``main --mode
+   peak memory and launches, driven directly; [ncsn*], [ncsnv2*]: NCSN v1
+   (ve/ncsn/cifar10.py) and NCSNv2 (ve/ncsnv2/cifar10.py, bedroom.py, an
+   ncsnv2_256 override) at full width: forwards against the CPU, ``main
+   --mode train`` and ALD ``main --mode sample`` (NCSN v1 at 10 scales x
+   10 steps, cut from 100), one sampler step's peak memory at batch 1024
+   (30 Langevin steps), the 128² train step;
+12. [bf16-church*], [bf16-1024]: the two bf16 files: ``main --mode
    train`` (church at batch 8, its config: 32) and a resume, ``--mode
-   sample``, the train step's time and
-   memory in bf16 and fp32, the bf16 forward's distance from fp32; the
-   1024² remat train step; [h100-leaves]: the two configs/h100/ leaves'
-   train steps at their batches (ms/step, images/s, peak memory against
-   the card's total) and one profiled step each (idle share, families);
-21. [data-*]: the data sources, on files written from a seed under a
+   sample``, the train step's memory and launches in bf16 and fp32, the
+   bf16 forward's distance from fp32; the 1024² remat train step;
+   [h100-leaves]: the two configs/h100/ leaves' train steps at their
+   batches, their launches and peak memory against the card's total;
+13. [data-*]: the data sources, on files written from a seed under a
    temporary directory: [data-church] ve/church_ncsnpp_continuous.py (LSUN
    256²) on a folder of 320x256 JPEGs, ``main --mode train`` at its batch
    of 64 and a resume that skips its streams across an epoch boundary, the
-   loader's images/s alone against the step's demand and ``skip`` over
-   10⁵ batches with no image decoded; [data-ffhq]
-   ve/ffhq_ncsnpp_continuous.py (1024², batch 8) on TFRecords of
-   3x1024x1024 in 2 shards, train and resume, the reader's MB/s with both
-   CRCs and the CRC's GB/s; [data-celeba] ve/celeba_ncsnpp.py (CELEBA 64²)
-   on 178x218 PNGs, train and resume at batch 32 (config 128), then
-   ``main --mode eval`` with the loss over the streamed test split and
-   bits/dim over the streamed train split (one batch of 32);
-   [data-native] the C++ loader against the python pipeline in images/s
-   (SVHN from a ``.mat`` at 32², the church folder in memory at 256²).
+   loader alone and ``skip`` over 10⁵ batches with no image decoded;
+   [data-ffhq] ve/ffhq_ncsnpp_continuous.py (1024², batch 8) on TFRecords
+   of 3x1024x1024 in 2 shards, train and resume; [data-celeba]
+   ve/celeba_ncsnpp.py (CELEBA 64²) on 178x218 PNGs, train and resume at
+   batch 32 (config 128), then ``main --mode eval`` with the loss over the
+   streamed test split and bits/dim over the streamed train split (one
+   batch of 32); [data-native] the C++ loader and the python pipeline on
+   SVHN from a ``.mat`` at 32² and the church folder in memory at 256²,
+   their batches float32 in [0, 1].
 
 Network evaluations are counted with a forward hook (the PC sampler's NFE
 is N·(n_steps + 1) whatever the corrector; the "none" predictor evaluates
-nothing), and every run above holds the attention launches per evaluation
+nothing), and every run above holds the attention launches
+(``kernel.attention.*`` counters of ``utils/tracing.py``) per evaluation
 to 6 (NCSN++/DDPM++ at 32², the CelebA NCSN++ at 64²), 4 (the DDPM at
 32² and 256², the church NCSN++ in fp32 and bf16), 7 (multiattn), 3
 (1024², fp32 and bf16) and 0 (NCSN, NCSNv2), and the backward calls to
@@ -206,14 +167,15 @@ captured after one forward without gradient that records their inputs:
 the runs add one forward's attention launches per capture, read from the
 ``graph.capture`` counter.
 
-The last three lines of standard output are the kernels' JSON record, the
-card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
+The last three lines of standard output are the kernels' JSON record
+(each kernel's launches in the runs above in this process, and its ms,
+plain ms, library ms, bound and largest error at one shape from
+``ops/bench_kernels.py``, that error held to the kernel's bound),
+the card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
-import itertools
 import json
 import math
 import os
@@ -221,10 +183,7 @@ import re
 import subprocess
 import sys
 import tempfile
-import time
 from unittest import mock
-
-_STARTED = time.perf_counter()  # a --ddp-worker rank's own start
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "score_sde_pytorch_tpu_torch", "configs", "ve",
@@ -242,46 +201,22 @@ SMOKE_BATCH = 16
 SMOKE_ROUNDS = 2
 ATTN_PER_FORWARD = 6         # 5 blocks at 16x16 and the 4x4 bottleneck
 DDPM_ATTN_PER_FORWARD = 4    # DDPM: 3 blocks at 16x16 and the bottleneck
-# The path's shapes first: sampling (batch 64), training (batch 128), the
-# configs' eval batch (1024), the 4x4 bottleneck, then the 32x32 and
-# ragged shapes of other configs.
-# Rows (B, N_q, N_kv, C) are the space axis's ([space-2rank]): a slab's
-# N / 2 query rows against the N keys and values of both ranks (church
-# 256² at global batch 4 at its 16² and 4² levels, and at batch 8).
-SPLIT_SHAPES = [(4, 128, 256, 256), (4, 8, 16, 256), (8, 128, 256, 256)]
-ATTN_SHAPES = [(64, 256, 256), (128, 256, 256), (1024, 256, 256),
-               (64, 16, 256), (2, 1024, 256), (4, 200, 256),
-               (1, 4096, 256)] + SPLIT_SHAPES
-FP32_TOL = 2e-5
 FORWARD_RTOL = 1e-4
-BWD_SHAPES = [(128, 256, 256), (128, 16, 256), (2, 1024, 256),
-              (1, 1024, 128), (4, 200, 256)] + SPLIT_SHAPES
-BWD_TOL = 5e-4               # the JAX package's gradient bound
-ACT_SHAPES = [(128, 256, 16, 16), (128, 128, 32, 32)]
-ACT_TOL = 1e-6
 GN_SOURCE = "score_sde_pytorch_tpu_torch/ops/csrc/group_norm.cu"
 GN_REPLACES = "none: the JAX package's GroupNorm + swish is XLA's"
-# The largest GroupNorm + swish calls of each benchmark cell, 32 groups:
-# cell 3 (PC at 1024, 32² and 16²), cell 1 (train at 128) and cell 2
-# (church 256² train at 24: split at 256², 128², 64²; on chip at 32²).
-GN_SHAPES = [("cell 3", (1024, 128, 32, 32)), ("cell 3", (1024, 256, 16, 16)),
-             ("cell 1", (128, 256, 32, 32)), ("cell 1", (128, 256, 8, 8)),
-             ("cell 2", (24, 256, 256, 256)), ("cell 2", (24, 128, 128, 128)),
-             ("cell 2", (24, 256, 64, 64)), ("cell 2", (24, 512, 32, 32))]
-GN_TOL = 1e-5                # fp32, of each tensor's largest entry
-GN_BF16_TOL = 2.0 ** -7      # one bf16 ulp of it (dweight, dbias too)
 # GroupNorm calls of one NCSN++ resblock (GroupNorm_0 and GroupNorm_1), the
 # blocks that a train step on one card replays as CUDA graphs.
 GN_PER_RESBLOCK = 2
-CHURCH_H100 = os.path.join(CONFIGS, "h100", "church_256_ncsnpp_h100.py")
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
-# tensor cores' TF32 rate, the card's fastest on fp32 inputs, their bf16
-# rate, and HBM.
-TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
-PROFILE_BATCH = 64           # the sampler's profiled window
-PROFILE_SCALES = 10          # 20 NFE
+# The shape each kernel's row of the closing record is timed at
+# (ops/bench_kernels.py): B, N_q, N_kv, C of the attention (sampling at
+# 64, training at 128); fused act's and GroupNorm's tensor (cell 3's
+# largest GroupNorm call).
+RECORD_SHAPES = {"attention_forward": (64, 256, 256, 256),
+                 "attention_backward": (128, 256, 256, 256),
+                 "fused_act": (128, 256, 16, 16),
+                 "group_norm": (1024, 128, 32, 32)}
+SAMPLER_BATCH = 64           # [sampler] and [vp-sampler]
+SAMPLER_SCALES = 10          # 20 NFE
 GRAD_BATCH = 8
 GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-5
@@ -291,26 +226,18 @@ TRAIN_FLAGS = {"training.batch_size": TRAIN_BATCH, "training.log_freq": 5,
                "training.snapshot_freq_for_preemption": 5,
                "training.snapshot_freq": 10,
                "model.num_scales": SMOKE_SCALES}
-TIMED_STEPS = 10
-PROFILED_STEPS = 5
 EVAL_BATCH = 32              # eval.batch_size cut from 1024 for the time
 EVAL_TRAIN_IMAGES = 64       # the .npz split sizes
 DIV_BATCH = 8
 DIV_RTOL = 1e-4
 INCEPTION_CHECK = 4          # images through the card's and the CPU's
 INCEPTION_TOL = 1e-4         # of max |pool_3|
-DRIFT_BATCH = 64
 DRIFT_BIG_BATCH = 1024       # the configs' eval.batch_size
 VP_TRAIN_STEPS = 10
 SAMPLERS_BATCH = 64
 SAMPLERS_SCALES = 25         # discrete VP rules need num_scales > beta_max
 FLOW_STEPS = 10              # heun and dpmpp steps
-VP_PROFILE_SCALES = 20       # Euler-Maruyama: 20 network evaluations
-# C = 512 (the 256² DDPM's and the 1024² NCSN++'s attention) and a C that
-# is neither 256 nor 512.
-ATTN_512_SHAPES = [(64, 256, 512), (8, 256, 512), (8, 64, 512),
-                   (2, 256, 512), (4, 200, 512), (1, 1024, 384),
-                   (2, 128, 256, 512), (2, 32, 64, 512)]  # 1024² split
+VP_SAMPLER_SCALES = 20       # Euler-Maruyama: 20 network evaluations
 CHURCH_CONFIG = os.path.join(CONFIGS, "ve", "church_ncsnpp_continuous.py")
 MULTIATTN_CONFIG = os.path.join(CONFIGS, "tpu",
                                 "church_ncsnpp_continuous_multiattn.py")
@@ -330,10 +257,6 @@ DDPM256_TRAIN_BATCH = 8      # a batch that fits without remat (config: 64)
 DDPM256_SCALES = 25          # discrete VP rules need num_scales > beta_max
 HQ1024_TRAIN_BATCH = 8       # the config's own
 NO_REMAT_BATCHES = (32, 24, 16, 8, 4)
-# The bf16 attention of the bf16 files: church (train batch 32) and 1024²
-# (batch 8), at their 16² and bottleneck grids.
-BF16_SHAPES = [(32, 256, 256), (32, 16, 256), (8, 256, 512), (8, 64, 512),
-               (32, 128, 256, 256), (32, 8, 16, 256), (8, 128, 256, 512)]
 NCSN_CONFIG = os.path.join(CONFIGS, "ve", "ncsn", "cifar10.py")
 NCSNV2_CONFIG = os.path.join(CONFIGS, "ve", "ncsnv2", "cifar10.py")
 BEDROOM_CONFIG = os.path.join(CONFIGS, "ve", "ncsnv2", "bedroom.py")
@@ -348,7 +271,6 @@ BEDROOM_BATCHES = (128, 64, 32)
 V2_256_BATCH = 4
 BF16_CHURCH_ATTN = 4         # 3 x [B, 256, 256] and 1 x [B, 16, 256]
 BF16_1024_ATTN = 3           # 2 x [B, 256, 512] and 1 x [B, 64, 512]
-CHURCH_FP32_TRAIN_BATCH = 64  # [hires-memory]'s remat step, for comparison
 # The short train runs (the data phases, [hires-train], [bf16-church-train]):
 # ``main --mode train`` for 2 steps of one batch each and a resume to 4, so
 # the resume skips 2 train batches and 1 eval batch.
@@ -367,7 +289,6 @@ CELEBA_TRAIN_BATCH = 32      # cut from the config's 128
 CELEBA_EVAL_BATCH = 32       # each split in one batch (config 1024)
 SKIP_BATCHES = 100_000
 DDP_STEPS = 2                # [ddp-2rank] train steps (flagship and church)
-DDP_ALLREDUCE_REPEATS = 3
 DDP_SAMPLE_BATCH = 16        # [ddp-2rank] PC and bits/dim: 8 rows a rank
 DDP_ODE_TOL = 1e-2           # the bits/dim integration's rtol and atol
 DDP_CHURCH_BATCH = 4
@@ -378,12 +299,10 @@ DDP_NCCL_STEPS = (4, 6)      # [ddp-nccl]: train to 4, resume to 6
 DDP_CLI_SCALES = 10          # [ddp-cli] num_scales: 20 NFE a sampler run
 DDP_EVAL_BATCH = 32          # [ddp-cli] eval.batch_size, 16 a rank
 DDP_TIMEOUT = 600
-STEP_DEMAND = (64, 2.2)      # church: 64 images per 2.2 s step (PERF.md §5)
 URI_BATCH = 32               # [uri]: the flagship's train, eval and sample
 URI_SCALES = 10              # [uri] snapshot and sample: 20 NFE
 DEMO_SCALES = 20             # [demo]: PC, inpainting, colorization 40 NFE
 STATS_TOL = 1e-5             # [stats]: mu and sigma against run_inception's
-LEAF_STEPS = 2               # [h100-leaves] timed steps after one warm-up
 # [learn]: the gaussian learning proof (tools/learning_proof.py) cut to
 # LEARN_STEPS of its 3000 steps. Its full fp32 run on one H100 80GB HBM3 at
 # 700 W took 213.16 ms/step; its loss was 0.467 of the first step's at step
@@ -422,7 +341,6 @@ SPACE_BF16_RTOL = 1e-2       # bf16 loss, 2 ranks vs one process
 SPACE_AGREE = 0.1
 SPACE_ROUNDING = 10
 SVHN_IMAGES = {"train": 4096, "test": 512}
-NATIVE_BATCHES = 50
 
 
 def check(ok: bool, what: str) -> None:
@@ -473,206 +391,6 @@ def _tf32_restore(torch, defaults) -> None:
    torch.backends.cudnn.allow_tf32) = defaults
 
 
-def time_ms(torch, fn, iters: int = 50) -> float:
-  for _ in range(5):
-    fn()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(iters):
-    fn()
-  end.record()
-  torch.cuda.synchronize()
-  return start.elapsed_time(end) / iters
-
-
-def bound(flops: float, nbytes: float, peak: float = TF32_FLOPS) -> tuple:
-  """The least time the card could take, in ms, and what bounds it: the
-  larger of the operations at ``peak`` (the TF32 peak unless given) and
-  the bytes at HBM's rate."""
-  ops_ms = flops / peak * 1e3
-  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-  return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def _sass_mma_counts(lib_path) -> dict:
-  """HMMA (tensor-core) instructions per kernel in the built library, or {}
-  where cuobjdump is not beside nvcc."""
-  from score_sde_pytorch_tpu_torch.ops import build
-  tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-  if not os.path.isfile(tool):
-    return {}
-  sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                        text=True, check=True).stdout
-  counts, name = {}, None
-  for line in sass.splitlines():
-    if "Function :" in line:
-      name = line.split(":", 1)[1].strip()
-      counts[name] = 0
-    elif name is not None and re.search(r"\bHMMA\b", line):
-      counts[name] += 1
-  return counts
-
-
-def _host_build() -> tuple:
-  from score_sde_pytorch_tpu_torch.native import build
-  start = time.perf_counter()
-  path = build.build()
-  return path, time.perf_counter() - start
-
-
-def phase_build(*modules) -> None:
-  """One nvcc per kernel source and the g++ of the host library (native
-  loader, CRC-32C), all started together. Fails if an attention kernel
-  spills registers or has no tensor-core instruction."""
-  with concurrent.futures.ThreadPoolExecutor(len(modules) + 1) as pool:
-    host = pool.submit(_host_build)
-    libs = list(pool.map(lambda m: m.kernel_library(), modules))
-    host_path, host_seconds = host.result()
-  say(f"[build] {host_path.name}: g++ {host_seconds:.2f} s (dataloader.cpp, "
-      "crc32c.cpp)")
-  for lib in libs:
-    say(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
-    kernel = None
-    for line in lib.compiler_log.splitlines():
-      if "Compiling entry function" in line:
-        kernel = line.split("'")[1]
-      if "registers" in line or "spill" in line or "Compiling" in line:
-        say("[build]  ", line.strip())
-      spills = re.search(r"(\d+) bytes spill stores", line)
-      if spills and kernel and "flash_attention" in kernel:
-        check(int(spills.group(1)) == 0, f"{kernel} spills registers")
-    if lib.name == "flash_attention":
-      mma = {k: v for k, v in _sass_mma_counts(lib.path).items()
-             if re.search(r"flash_attention_(fwd|bwd_dkdv|bwd_dq)", k)}
-      for name, count in mma.items():
-        say(f"[build]   {count} HMMA (mma.sync) in {name[:100]}")
-        check(count > 0, f"{name} has no tensor-core instruction")
-      if not mma:
-        say("[build]   cuobjdump not found: tensor-core use not checked")
-
-
-def sdpa_backend(torch, fn) -> str:
-  """The device kernels one call of ``fn`` launches (which backend
-  F.scaled_dot_product_attention picked)."""
-  from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
-  names = sorted({evt.key for evt in prof.key_averages()
-                  if str(getattr(evt, "device_type", "")).endswith("CUDA")})
-  return "; ".join(n[:60] for n in names) or "not measured"
-
-
-def _lengths(shape) -> tuple:
-  """(B, N_q, N_kv, C) of a kernel row; a row (B, N, C) has N_q = N_kv."""
-  if len(shape) == 3:
-    b, n, c = shape
-    return b, n, n, c
-  return tuple(shape)
-
-
-def _row(b, n_q, n_kv, c) -> str:
-  if n_q == n_kv:
-    return f"B,N,C={b},{n_q},{c}"
-  return f"B,N_q|N_kv,C={b},{n_q}|{n_kv},{c}"
-
-
-def _qkv(torch, b, n_q, n_kv, c, gen, dout: bool = False) -> list:
-  """Standard-normal q [B, N_q, C], k and v [B, N_kv, C] (and dO of q's
-  shape) on the card."""
-  shapes = [(b, n_q, c), (b, n_kv, c), (b, n_kv, c)] + (
-      [(b, n_q, c)] if dout else [])
-  return [torch.randn(*s, device="cuda", generator=gen) for s in shapes]
-
-
-def phase_kernel(torch, attn, shapes=ATTN_SHAPES,
-                 tag: str = "[kernel]") -> dict:
-  """Kernel vs plain attention on standard-normal q, k, v at ``shapes``
-  ((B, N, C), or (B, N_q, N_kv, C): queries and keys of two lengths).
-  Returns the record of the first shape.
-
-  - fp32 (TF32 off): max |kernel - plain| <= 2e-5.
-  - bf16: error against the fp64 result no worse than the plain bf16
-    path's, x1.5 + 1e-3 (tests/test_attention.py's rule).
-  - logits x30: finite, and error against the fp64 result no worse than the
-    plain fp32 path's, x1.5 + 2e-5. Against the plain path itself no fp32
-    bound below fp32's own error applies: at x30 the plain path is up to
-    1.2e-4 from the fp64 result on these inputs, because logits of ~100
-    carry fp32 rounding of ~1e-5 that the peaked softmax amplifies.
-
-  Times: the kernel, the plain version, and the library's one call that
-  computes the same function, F.scaled_dot_product_attention on
-  [B, 1, N, C] (timed only: the port never calls it), beside the bound."""
-  sdpa = torch.nn.functional.scaled_dot_product_attention
-  gen = torch.Generator(device="cuda").manual_seed(0)
-  worst = 0.0
-  record = None
-  for shape in shapes:
-    b, n_q, n_kv, c = _lengths(shape)
-    row = _row(b, n_q, n_kv, c)
-    q, k, v = _qkv(torch, b, n_q, n_kv, c, gen)
-    out = attn.attention(q, k, v)
-    plain = attn.dense_attention(q, k, v)
-    exact = attn.dense_attention(*(t.double() for t in (q, k, v)))
-    torch.cuda.synchronize()
-    err = (out - plain).abs().max().item()
-    err_exact = (out.double() - exact).abs().max().item()
-    err_plain_exact = (plain.double() - exact).abs().max().item()
-    check(math.isfinite(err) and err <= FP32_TOL,
-          f"fp32 kernel vs plain at {row}: {err:.3g} > {FP32_TOL}")
-    worst = max(worst, err)
-    del exact
-
-    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    exact16 = attn.dense_attention(*(t.double() for t in (qb, kb, vb)))
-    err_bf16 = (attn.attention(qb, kb, vb).double() - exact16).abs().max().item()
-    err_bf16_plain = (attn.dense_attention(qb, kb, vb).double()
-                      - exact16).abs().max().item()
-    check(err_bf16 <= err_bf16_plain * 1.5 + 1e-3,
-          f"bf16 at {row}: kernel {err_bf16:.3g} vs plain "
-          f"{err_bf16_plain:.3g}")
-    del exact16
-
-    q30 = q * 30  # logits far past exp's range unless the softmax is online
-    out30 = attn.attention(q30, k, v)
-    plain30 = attn.dense_attention(q30, k, v)
-    exact30 = attn.dense_attention(q30.double(), k.double(), v.double())
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out30).all()),
-          f"x30 logits: kernel output not finite at {row}")
-    err30 = (out30 - plain30).abs().max().item()
-    err30_exact = (out30.double() - exact30).abs().max().item()
-    err30_plain_exact = (plain30.double() - exact30).abs().max().item()
-    check(err30_exact <= 1.5 * err30_plain_exact + FP32_TOL,
-          f"x30 at {row}: kernel-exact {err30_exact:.3g}, plain-exact "
-          f"{err30_plain_exact:.3g}")
-    del exact30, out30, plain30, q30
-
-    q4, k4, v4 = (t[:, None] for t in (q, k, v))
-    ms = time_ms(torch, lambda: attn.attention(q, k, v))
-    plain_ms = time_ms(torch, lambda: attn.dense_attention(q, k, v))
-    library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4))
-    ms_again = time_ms(torch, lambda: attn.attention(q, k, v))
-    bound_ms, bound_by = bound(4.0 * b * n_q * n_kv * c,
-                               2.0 * b * (n_q + n_kv) * c * 4)
-    say(f"{tag} {row}: fp32 kernel-plain {err:.3g}, vs fp64 "
-        f"kernel {err_exact:.3g} plain {err_plain_exact:.3g} | bf16 vs fp64 "
-        f"kernel {err_bf16:.3g} plain {err_bf16_plain:.3g} | x30 kernel-plain "
-        f"{err30:.3g}, vs fp64 kernel {err30_exact:.3g} plain "
-        f"{err30_plain_exact:.3g}")
-    say(f"{tag}   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) plain "
-        f"{plain_ms:.4f} sdpa {library_ms:.4f} bound {bound_ms:.4f} "
-        f"({bound_by}); share of bound {bound_ms / ms:.3f}")
-    if record is None:
-      record = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
-      say(f"{tag}   sdpa backend: "
-          f"{sdpa_backend(torch, lambda: sdpa(q4, k4, v4))}")
-  record["max_abs_err"] = worst
-  return record
-
-
 def unit_gain_(torch, model, layers, seed: int) -> None:
   """Every parameter drawn at unit gain, including those the real init
   zeroes (NIN_3, Conv_1, conv_out), so attention moves the output."""
@@ -714,10 +432,10 @@ def phase_forward(torch, attn, config, model, tag: str = "[forward]",
   t = torch.rand(batch, device="cuda", generator=gen)
   labels = _labels(config, t)
   with torch.no_grad():
-    before = attn.flash_attention_launches
+    before = _counts()["forward"]
     through_kernel = model(x, labels)
     torch.cuda.synchronize()
-    launches = attn.flash_attention_launches - before
+    launches = _counts()["forward"] - before
     with mock.patch.object(attn, "attention", attn.dense_attention):
       through_plain = model(x, labels)
       on_cpu = model.to("cpu")(x[:cpu_batch].cpu(), labels[:cpu_batch].cpu())
@@ -736,7 +454,7 @@ def phase_forward(torch, attn, config, model, tag: str = "[forward]",
   check(rel_cpu <= FORWARD_RTOL, f"{tag} card vs CPU rel err {rel_cpu:.3g}")
 
 
-def phase_sample(torch, attn, config, model, card_line: str) -> int:
+def phase_sample(config, model) -> None:
   import numpy as np
   from score_sde_pytorch_tpu_torch import checkpoint, main
   overrides = [f"--config.model.num_scales={SMOKE_SCALES}",
@@ -746,12 +464,12 @@ def phase_sample(torch, attn, config, model, card_line: str) -> int:
   with tempfile.TemporaryDirectory() as workdir:
     checkpoint.save_checkpoint(checkpoint.numbered_path(workdir, 1), model,
                                config, step=1)
-    attn.flash_attention_launches = 0
+    _reset()
     rounds = main.main(["--config", FLAGSHIP, "--workdir", workdir,
                         "--mode", "sample",
                         "--num_samples", str(SMOKE_BATCH * SMOKE_ROUNDS)]
                        + overrides)
-    launches = attn.flash_attention_launches
+    launches = _counts()["forward"]
     for r in range(SMOKE_ROUNDS):
       path = os.path.join(workdir, "generated", f"samples_{r}.npz")
       check(os.path.isfile(path), f"{path} missing")
@@ -766,342 +484,9 @@ def phase_sample(torch, attn, config, model, card_line: str) -> int:
   want = ATTN_PER_FORWARD * nfe * SMOKE_ROUNDS
   check(launches == want, f"{launches} kernel launches while sampling, want "
         f"{want} = {ATTN_PER_FORWARD} x NFE {nfe} x {SMOKE_ROUNDS} rounds")
-  for r, rec in enumerate(rounds):
-    say(f"[sample] round {r}: {rec['samples']} samples in {rec['seconds']:.3f}"
-        f" s = {rec['samples'] / rec['seconds']:.3f} samples/s, "
-        f"{rec['seconds'] * 1e3 / rec['nfe']:.3f} ms/NFE at batch "
-        f"{SMOKE_BATCH} ({card_line})")
-  say(f"[sample] {launches} kernel launches = {ATTN_PER_FORWARD} x NFE {nfe} "
-      f"x {SMOKE_ROUNDS} rounds")
-  return launches
-
-
-def _max_err(a, b) -> float:
-  return (a.double() - b.double()).abs().max().item()
-
-
-def phase_kernel_bwd(torch, attn, shapes=BWD_SHAPES,
-                     tag: str = "[kernel-bwd]") -> dict:
-  """Backward kernels vs the plain backward on standard-normal q, k, v, dO
-  at ``shapes`` (as :func:`phase_kernel`'s). Returns the record of the
-  first shape.
-
-  - fp32 (TF32 off): dq, dk, dv within 5e-4 (absolute and relative) of
-    ``dense_attention_backward`` and of autograd through
-    ``dense_attention``.
-  - bf16: error against the fp64 gradients no worse than the plain bf16
-    path's, x1.5 + 1e-3.
-  - logits x30: finite, and error against the fp64 gradients no worse than
-    the plain fp32 path's, x1.5 + 5e-4."""
-  gen = torch.Generator(device="cuda").manual_seed(2)
-  worst = 0.0
-  record = None
-
-  def through_kernel(q, k, v, dout):
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    attn.attention(*leaves).backward(dout)
-    return [t.grad for t in leaves]
-
-  def plain(q, k, v, dout):
-    return attn.dense_attention_backward(q, k, v,
-                                         attn.dense_attention(q, k, v), dout)
-
-  def close(got, want):
-    return all(bool(((g - w).abs() <= BWD_TOL + BWD_TOL * w.abs()).all())
-               for g, w in zip(got, want))
-
-  for shape in shapes:
-    b, n_q, n_kv, c = _lengths(shape)
-    row = _row(b, n_q, n_kv, c)
-    q, k, v, dout = _qkv(torch, b, n_q, n_kv, c, gen, dout=True)
-    got = through_kernel(q, k, v, dout)
-    want = plain(q, k, v, dout)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    attn.dense_attention(*leaves).backward(dout)
-    auto = [t.grad for t in leaves]
-    torch.cuda.synchronize()
-    err = max(_max_err(g, w) for g, w in zip(got, want))
-    err_auto = max(_max_err(g, w) for g, w in zip(got, auto))
-    check(math.isfinite(err) and close(got, want) and close(got, auto),
-          f"fp32 backward kernel vs plain at {row}: {err:.3g}, vs "
-          f"autograd {err_auto:.3g} (bound {BWD_TOL} abs + rel)")
-    worst = max(worst, err)
-
-    def exact_of(*args):
-      wide = [a.double() for a in args]
-      return plain(*wide)
-
-    args16 = [t.bfloat16() for t in (q, k, v, dout)]
-    exact16 = exact_of(*args16)
-    err16 = max(_max_err(g, e) for g, e in zip(through_kernel(*args16),
-                                                exact16))
-    err16_plain = max(_max_err(g, e) for g, e in zip(plain(*args16), exact16))
-    check(err16 <= 1.5 * err16_plain + 1e-3,
-          f"bf16 backward at {row}: kernel {err16:.3g} vs plain "
-          f"{err16_plain:.3g}")
-
-    args30 = [q * 30, k, v, dout]
-    exact30 = exact_of(*args30)
-    got30 = through_kernel(*args30)
-    check(all(bool(torch.isfinite(g).all()) for g in got30),
-          f"x30 logits: backward not finite at {row}")
-    err30 = max(_max_err(g, e) for g, e in zip(got30, exact30))
-    err30_plain = max(_max_err(g, e) for g, e in zip(plain(*args30), exact30))
-    check(err30 <= 1.5 * err30_plain + BWD_TOL,
-          f"x30 backward at {row}: kernel-exact {err30:.3g}, "
-          f"plain-exact {err30_plain:.3g}")
-
-    again = through_kernel(q, k, v, dout)
-    check(all(torch.equal(x, y) for x, y in zip(got, again)),
-          f"backward not bitwise repeatable at {row}")
-
-    out, lse = attn._launch_flash_attention(q, k, v, with_lse=True)
-    ms = time_ms(torch, lambda: attn._launch_flash_attention_backward(
-        q, k, v, out, lse, dout), iters=20)
-    plain_ms = time_ms(torch, lambda: attn.dense_attention_backward(
-        q, k, v, out, dout), iters=20)
-    # Forward + backward of the kernels and of the library's call
-    # (F.scaled_dot_product_attention on [B, 1, N, C]; no single library
-    # call computes the backward alone).
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    wide = [t[:, None] for t in leaves]
-    dout4 = dout[:, None]
-    both_ms = time_ms(torch, lambda: torch.autograd.grad(
-        attn.attention(*leaves), leaves, dout), iters=20)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_both_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa(*wide), leaves, dout4), iters=20)
-    ms_again = time_ms(torch, lambda: attn._launch_flash_attention_backward(
-        q, k, v, out, lse, dout), iters=20)
-    bound_ms, bound_by = bound(10.0 * b * n_q * n_kv * c,
-                               (4.0 * b * (n_q + n_kv) * c + b * n_q) * 4)
-    say(f"{tag} {row}: fp32 kernel-plain {err:.3g}, "
-        f"kernel-autograd {err_auto:.3g} | bf16 vs fp64 kernel {err16:.3g} "
-        f"plain {err16_plain:.3g} | x30 vs fp64 kernel {err30:.3g} plain "
-        f"{err30_plain:.3g} | bitwise repeatable")
-    say(f"{tag}   fp32 ms: kernel {ms:.4f} (again {ms_again:.4f}) "
-        f"plain {plain_ms:.4f} bound {bound_ms:.4f} ({bound_by}); share of "
-        f"bound {bound_ms / ms:.3f} | forward+backward: kernels "
-        f"{both_ms:.4f} sdpa {sdpa_both_ms:.4f}")
-    if record is None:
-      record = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by}
-      say(f"{tag}   sdpa backend (forward+backward): "
-          + sdpa_backend(torch, lambda: torch.autograd.grad(
-              sdpa(*wide), leaves, dout4)))
-  record["max_abs_err"] = worst
-  return record
-
-
-def phase_fused_act(torch, act) -> tuple:
-  """Fused bias + leaky ReLU kernels vs their plain versions, forward and
-  backward (grad_x): fp32 within 1e-6; bf16 no further from the fp64
-  result than the plain bf16 path (x1.5 + 1e-6). Returns the forward's and
-  the backward's records at the first shape."""
-  gen = torch.Generator(device="cuda").manual_seed(3)
-  records = [None, None]
-  worst = [0.0, 0.0]
-  for shape in ACT_SHAPES:
-    x, g = (torch.randn(shape, device="cuda", generator=gen)
-            for _ in range(2))
-    bias = torch.randn(shape[1], device="cuda", generator=gen)
-    pairs = [(lambda x, b, g: act._launch_forward(x, b, 0.2, math.sqrt(2)),
-              lambda x, b, g: act.fused_leaky_relu(x, b)),
-             (lambda x, b, g: act._launch_backward(x, b, g, 0.2,
-                                                   math.sqrt(2)),
-              act.fused_leaky_relu_backward)]
-    for i, (kernel, plain) in enumerate(pairs):
-      err = _max_err(kernel(x, bias, g), plain(x, bias, g))
-      check(err <= ACT_TOL, f"fused act {('forward', 'backward')[i]} fp32 at "
-            f"{shape}: {err:.3g} > {ACT_TOL}")
-      worst[i] = max(worst[i], err)
-      args16 = [t.bfloat16() for t in (x, bias, g)]
-      exact = plain(*(t.double() for t in args16))
-      err16 = _max_err(kernel(*args16), exact)
-      err16_plain = _max_err(plain(*args16), exact)
-      check(err16 <= 1.5 * err16_plain + 1e-6,
-            f"fused act {('forward', 'backward')[i]} bf16 at {shape}: kernel "
-            f"{err16:.3g} vs plain {err16_plain:.3g}")
-      ms = time_ms(torch, lambda: kernel(x, bias, g))
-      plain_ms = time_ms(torch, lambda: plain(x, bias, g))
-      # Reads x (and g in the backward) and the bias, writes one tensor; a
-      # few operations per element, far under the bytes' time.
-      bound_ms, bound_by = bound(4.0 * x.numel(),
-                                 ((2 + i) * x.numel() + bias.numel()) * 4)
-      say(f"[fused-act] {('forward', 'backward')[i]} {shape}: fp32 "
-          f"kernel-plain {err:.3g} | bf16 vs fp64 kernel {err16:.3g} plain "
-          f"{err16_plain:.3g} | fp32 ms kernel {ms:.4f} plain "
-          f"{plain_ms:.4f} bound {bound_ms:.4f} ({bound_by}); share of "
-          f"bound {bound_ms / ms:.3f}")
-      if records[i] is None:
-        # No single PyTorch call computes leaky_relu(x + b, 0.2) * sqrt(2).
-        records[i] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
-  for record, err in zip(records, worst):
-    record["max_abs_err"] = err
-  return tuple(records)
-
-
-def _gn_err(got, want) -> float:
-  """The largest difference, as a share of ``want``'s largest entry."""
-  return _max_err(got, want) / max(want.double().abs().max().item(), 1e-30)
-
-
-def _gn_inputs(torch, shape, gen, dtype=None):
-  x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.5
-  dy = torch.randn(shape, device="cuda", generator=gen)
-  w = 1 + 0.3 * torch.randn(shape[1], device="cuda", generator=gen)
-  b = 0.3 * torch.randn(shape[1], device="cuda", generator=gen)
-  if dtype is not None:
-    x, dy = x.to(dtype), dy.to(dtype)
-  return x, w, b, dy
-
-
-def _gn_gates(torch, gn, shape, dtype, act, gen) -> tuple:
-  """``gn.group_norm_act`` with autograd, as the models call it, against
-  the plain versions at ``shape``: y, dx, dweight and dbias within GN_TOL
-  (fp32) or GN_BF16_TOL (bf16) of each tensor's largest entry. Returns the
-  largest absolute errors of y and of the three gradients."""
-  x, w, b, dy = _gn_inputs(torch, shape, gen, dtype)
-  leaves = [t.clone().requires_grad_() for t in (x, w, b)]
-  y = gn.group_norm_act(*leaves, 32, 1e-6, act)
-  y.backward(dy)
-  got = (y.detach(),) + tuple(t.grad for t in leaves)
-  del y, leaves
-  mean, var = gn.group_norm_stats(x, 32)
-  want = (gn.group_norm_act_forward(x, w, b, 32, 1e-6, act),) + (
-      gn.group_norm_act_backward(x, w, b, 32, 1e-6, act, mean, var, dy))
-  torch.cuda.synchronize()
-  tol = GN_TOL if dtype == torch.float32 else GN_BF16_TOL
-  for name, g, e in zip(("y", "dx", "dweight", "dbias"), got, want):
-    err = _gn_err(g, e)
-    check(err <= tol, f"[group-norm] {name} {shape} {dtype} {act}: "
-          f"{err:.3g} > {tol:.1e}")
-  errs = [_max_err(g, e) for g, e in zip(got, want)]
-  return errs[0], max(errs[1:])
-
-
-def _gn_count(torch, gn, layers, model, run) -> tuple:
-  """GroupNorm calls of ``model`` in ``run()`` and the kernels' path
-  counts added meanwhile."""
-  calls = [0]
-  hooks = [m.register_forward_pre_hook(
-      lambda *_: calls.__setitem__(0, calls[0] + 1))
-           for m in model.modules() if isinstance(m, layers.GroupNorm)]
-  before = dict(gn.group_norm_launches)
-  try:
-    run()
-    torch.cuda.synchronize()
-  finally:
-    for h in hooks:
-      h.remove()
-  return calls[0], {k: v - before[k] for k, v in
-                    gn.group_norm_launches.items()}
-
-
-def phase_group_norm(torch, gn, layers) -> tuple:
-  """GroupNorm + swish kernels: each path's calls against a forward and a
-  backward of the flagship and of the church 256² model (every GroupNorm
-  call through a kernel); at the benchmark cells' largest calls
-  (GN_SHAPES, both paths), ``group_norm_act`` with autograd against the
-  plain versions (fp32 within 1e-5 and bf16 within one ulp of each
-  tensor's largest entry; act None and swish), and ms per call beside the
-  byte bound, the plain composite and F.group_norm + F.silu (the
-  library's calls, timed only). Returns the forward's and the backward's
-  records at the first shape, with the largest fp32 absolute errors."""
-  import torch.nn.functional as F
-  from score_sde_pytorch_tpu_torch import configs
-  from score_sde_pytorch_tpu_torch.models import utils as mutils
-  gen = torch.Generator(device="cuda").manual_seed(9)
-  for path, overrides, batch in ((FLAGSHIP, [], SMOKE_BATCH),
-                                 (CHURCH_H100, [], 2)):
-    config = configs.load_config(path, overrides)
-    model = mutils.create_model(config, "cuda",
-                                torch.Generator().manual_seed(0)).eval()
-    size = config.data.image_size
-    x = torch.rand(batch, 3, size, size, device="cuda", generator=gen)
-    t = torch.rand(batch, device="cuda", generator=gen)
-    with torch.no_grad():
-      calls, ran = _gn_count(torch, gn, layers, model,
-                             lambda: model(x, _labels(config, t)))
-    check(ran["onchip_fwd"] + ran["split_fwd"] == calls > 0
-          and ran["onchip_bwd"] + ran["split_bwd"] == 0,
-          f"[group-norm] {calls} GroupNorm calls, kernels {ran}")
-    xr = x.clone().requires_grad_()
-    calls_g, ran_g = _gn_count(
-        torch, gn, layers, model,
-        lambda: model(xr, _labels(config, t)).square().mean().backward())
-    check(calls_g == calls and ran_g["onchip_fwd"] == ran["onchip_fwd"]
-          and ran_g["split_fwd"] == ran["split_fwd"]
-          and ran_g["onchip_bwd"] == ran["onchip_fwd"]
-          and ran_g["split_bwd"] == ran["split_fwd"],
-          f"[group-norm] {calls_g} GroupNorm calls with gradients, kernels "
-          f"{ran_g}")
-    say(f"[group-norm] {os.path.basename(path)} at B={batch}: {calls} "
-        f"GroupNorm calls a forward, all through the kernels: {ran}; "
-        f"backward: on-chip {ran_g['onchip_bwd']}, split "
-        f"{ran_g['split_bwd']}")
-    del model, xr
-
-  records = [None, None]
-  # The largest absolute errors of the forward and the backward, in fp32
-  # (the other kernels' rows give fp32's) and in bf16.
-  worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
-  for cell, shape in GN_SHAPES:
-    for dtype, act in itertools.product(worst, gn.ACTS):
-      errs = _gn_gates(torch, gn, shape, dtype, act, gen)
-      worst[dtype] = [max(old, new) for old, new in zip(worst[dtype], errs)]
-    x, w, b, dy = _gn_inputs(torch, shape, gen)
-    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
-    path = "on-chip" if gn._onchip(x, 32, None) else "split"
-    y, stats = gn._launch_forward(x, w, b, 32, 1e-6, "swish", None)
-    fns = {
-        "kernel": (lambda: gn._launch_forward(x, w, b, 32, 1e-6, "swish",
-                                              None),
-                   lambda: gn._launch_backward(x, w, b, 32, 1e-6, "swish",
-                                               None, stats, dy)),
-        "plain": (lambda: gn.group_norm_act_forward(x, w, b, 32, 1e-6,
-                                                    "swish"),
-                  lambda: torch.autograd.grad(gn.group_norm_act_forward(
-                      *leaves, 32, 1e-6, "swish"), leaves, dy)),
-        "library": (lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)),
-                    lambda: torch.autograd.grad(F.silu(F.group_norm(
-                        leaves[0], 32, leaves[1], leaves[2], 1e-6)), leaves,
-                        dy))}
-    ms = {}
-    for name, (fwd, fwd_bwd) in fns.items():
-      ms[name] = time_ms(torch, fwd, iters=20)
-      # The plain and library backward: their forward and backward less
-      # the forward; the kernel's backward alone.
-      both = time_ms(torch, fwd_bwd, iters=20)
-      ms[name + "_bwd"] = both if name == "kernel" else both - ms[name]
-    # Forward: reads x, writes y; backward: reads x and dy, writes dx.
-    nbytes = x.numel() * x.element_size()
-    fwd_bound, _ = bound(0.0, 2 * nbytes)
-    bwd_bound, _ = bound(0.0, 3 * nbytes)
-    say(f"[group-norm] {cell} {shape} fp32 swish ({path}): forward ms kernel "
-        f"{ms['kernel']:.4f} plain {ms['plain']:.4f} library "
-        f"{ms['library']:.4f} bound {fwd_bound:.4f} (bytes), share "
-        f"{fwd_bound / ms['kernel']:.3f} | backward ms kernel "
-        f"{ms['kernel_bwd']:.4f} plain {ms['plain_bwd']:.4f} library "
-        f"{ms['library_bwd']:.4f} bound {bwd_bound:.4f} (bytes), share "
-        f"{bwd_bound / ms['kernel_bwd']:.3f}")
-    if records[0] is None:
-      for i, (key, bound_ms) in enumerate((("kernel", fwd_bound),
-                                           ("kernel_bwd", bwd_bound))):
-        suffix = key[len("kernel"):]
-        records[i] = {"ms": ms[key], "plain_ms": ms["plain" + suffix],
-                      "library_ms": ms["library" + suffix],
-                      "bound_ms": bound_ms, "bound_by": "bytes"}
-    del x, dy, leaves, y, stats
-  say(f"[group-norm] group_norm_act with autograd vs plain at the cells' "
-      f"shapes, fp32 and bf16, act None and swish: largest absolute error "
-      f"forward {worst[torch.float32][0]:.3g} (bf16 "
-      f"{worst[torch.bfloat16][0]:.3g}), backward "
-      f"{worst[torch.float32][1]:.3g} (bf16 {worst[torch.bfloat16][1]:.3g})")
-  for record, err in zip(records, worst[torch.float32]):
-    record["max_abs_err"] = err
-  return tuple(records)
+  say(f"[sample] {SMOKE_ROUNDS} rounds of {SMOKE_BATCH} samples; {launches} "
+      f"kernel launches = {ATTN_PER_FORWARD} x NFE {nfe} x {SMOKE_ROUNDS} "
+      "rounds")
 
 
 def phase_grad(torch, attn, config, model, sde=None,
@@ -1137,12 +522,11 @@ def phase_grad(torch, attn, config, model, sde=None,
     loss.backward()
     return loss.item(), [p.grad.clone() for p in params]
 
-  attn.flash_attention_launches = 0
-  attn.flash_attention_backward_launches = 0
+  _reset()
   loss, grads = loss_and_grads()
   torch.cuda.synchronize()
-  launches = attn.flash_attention_backward_launches
-  forward_launches = attn.flash_attention_launches
+  launches = _counts()["backward"]
+  forward_launches = _counts()["forward"]
   with mock.patch.object(attn, "attention", attn.dense_attention):
     loss_plain, grads_plain = loss_and_grads()
   model.zero_grad(set_to_none=True)
@@ -1197,104 +581,29 @@ def _ckpt_checks(torch, path, step, initial, ema_rate) -> None:
         f"{path}: non-finite weights")
 
 
-def _kernel_category(name: str) -> str:
-  if "flash_attention_fwd" in name:
-    return "attention forward"
-  if "flash_attention_bwd" in name or "attention_bwd_delta" in name:
-    return "attention backward"
-  if re.search(r"conv|cudnn|fprop|dgrad|wgrad|implicit", name, re.I):
-    return "convolutions (cuDNN)"
-  if re.search(r"gemm|cutlass|sgemm", name, re.I):
-    return "matmuls (dense, NIN)"
-  if re.search(r"multi_tensor|foreach", name, re.I):
-    return "optimizer and EMA (foreach)"
-  return "GroupNorm, elementwise, reductions, copies"
-
-
-def _device_us_by_kernel(prof) -> dict:
-  """Device time (us) by kernel name: device-side events, less the ranges
-  the optimizer annotates on the device's timeline (they span kernels that
-  are counted already)."""
-  by_kernel = {}
-  for evt in prof.key_averages():
-    if (str(getattr(evt, "device_type", "")).endswith("CUDA")
-        and not getattr(evt, "is_user_annotation", False)
-        and not evt.key.startswith(("Optimizer.", "ProfilerStep"))):
-      us = getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0))
-      by_kernel[evt.key] = by_kernel.get(evt.key, 0) + us
-  return by_kernel
-
-
-def _report_families(tag: str, by_kernel: dict, count: int,
-                     unit: str) -> None:
-  busy_us = sum(by_kernel.values())
-  families = {}
-  for name, us in by_kernel.items():
-    cat = _kernel_category(name)
-    families[cat] = families.get(cat, 0) + us
-  for cat, us in sorted(families.items(), key=lambda kv: -kv[1]):
-    say(f"{tag}   {cat}: {us / 1e3 / count:.3f} ms/{unit} "
-        f"({us / busy_us:.1%} of device time)")
-  for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-    say(f"{tag}     {us / 1e3 / count:8.3f} ms/{unit}  {name[:110]}")
-
-
-def phase_sample_profile(torch, model, card_line: str, config_path=FLAGSHIP,
-                         scales: int = PROFILE_SCALES,
-                         tag: str = "[sample-profile]") -> int:
+def phase_sampler(torch, model, config_path=FLAGSHIP,
+                  scales: int = SAMPLER_SCALES, tag: str = "[sampler]") -> int:
   """The config's sampler at batch 64 over ``scales`` steps, as
   ``run_lib.sample`` builds it with no device given (the model's device):
-  ms per network evaluation unprofiled, then a profiled run for the
-  device's busy time, the attention kernel's share of it and the idle
-  share. Evaluations are counted, not read off the sampler's NFE (the PC
-  sampler reports N·(n_steps + 1) whatever its corrector). Returns the
-  evaluations of one run."""
-  from torch.profiler import ProfilerActivity, profile
+  its samples on the card and finite. Evaluations are counted, not read
+  off the sampler's NFE (the PC sampler reports N·(n_steps + 1) whatever
+  its corrector). Returns the evaluations."""
   from score_sde_pytorch_tpu_torch import configs, datasets, sampling
   from score_sde_pytorch_tpu_torch import sde as sde_lib
   config = configs.load_config(config_path, [f"model.num_scales={scales}"])
   size = config.data.image_size
   sampler = sampling.get_sampling_fn(
       config, sde_lib.build_sde(config), model,
-      (PROFILE_BATCH, size, size, config.data.num_channels),
+      (SAMPLER_BATCH, size, size, config.data.num_channels),
       datasets.get_data_inverse_scaler(config))
-  gen = torch.Generator(device="cuda").manual_seed(6)
   with network_evals(torch) as evals:
-    samples, nfe = sampler(gen)  # warm-up
-  evals = evals[0]
+    samples, nfe = sampler(torch.Generator(device="cuda").manual_seed(6))
   check(samples.device.type == "cuda", f"{tag} the sampler ran off the card")
   check(bool(torch.isfinite(samples).all()), f"{tag} samples not finite")
-  torch.cuda.synchronize()
-  start = time.perf_counter()
-  sampler(gen)
-  torch.cuda.synchronize()
-  ms_eval = (time.perf_counter() - start) * 1e3 / evals
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    start = time.perf_counter()
-    sampler(gen)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - start) * 1e3
-  by_kernel = _device_us_by_kernel(prof)
-  busy_ms = sum(by_kernel.values()) / 1e3
-  attn_ms = sum(us for name, us in by_kernel.items()
-                if _kernel_category(name) == "attention forward") / 1e3
   say(f"{tag} {config.sampling.method} {config.sampling.predictor}/"
-      f"{config.sampling.corrector} at batch {PROFILE_BATCH}, {evals} network"
-      f" evaluations (reported NFE {nfe}): {ms_eval:.3f} ms/evaluation = "
-      f"{PROFILE_BATCH * 1e3 / (ms_eval * evals):.2f} samples/s at this "
-      f"count ({card_line})")
-  if busy_ms <= 0:
-    say(f"{tag} profiler: no device time recorded; shares not measured")
-    return evals
-  say(f"{tag} device busy {busy_ms / evals:.3f} ms/evaluation: idle share "
-      f"{1 - busy_ms / (ms_eval * evals):.3f} of the unprofiled wall, "
-      f"{1 - busy_ms / wall_ms:.3f} of the profiled; attention kernel "
-      f"{attn_ms / evals:.4f} ms/evaluation = {attn_ms / busy_ms:.1%} of "
-      f"device time")
-  _report_families(tag, by_kernel, evals, "evaluation")
-  return evals
+      f"{config.sampling.corrector} at batch {SAMPLER_BATCH}: {evals[0]} "
+      f"network evaluations (reported NFE {nfe})")
+  return evals[0]
 
 
 def _train_step(torch, config, batch_size: int):
@@ -1324,52 +633,10 @@ def _train_step(torch, config, batch_size: int):
   return steps
 
 
-def phase_train_time(torch, config, card_line: str,
-                     tag: str = "[train]") -> float:
-  """The train step at batch 128 as the loop runs it (one n-step call of
-  ``training.n_jitted_steps`` steps at a time): wall ms per step over
-  TIMED_STEPS steps, images/s, peak device memory, and a profiled window
-  of PROFILED_STEPS steps for the device's busy time by kernel family.
-  Returns the wall ms per step."""
-  torch.cuda.empty_cache()
-  torch.cuda.reset_peak_memory_stats()
-  steps = _train_step(torch, config, TRAIN_BATCH)
-  steps(3)  # warm-up: cuDNN's first-call set-up, Adam's state
-  start = time.perf_counter()
-  steps(TIMED_STEPS)
-  ms = (time.perf_counter() - start) * 1e3 / TIMED_STEPS
-  peak = torch.cuda.max_memory_allocated() / 2 ** 30
-  say(f"{tag} step at batch {TRAIN_BATCH}: {ms:.2f} ms/step = "
-      f"{TRAIN_BATCH * 1e3 / ms:.1f} images/s over {TIMED_STEPS} steps; peak "
-      f"max_memory_allocated {peak:.2f} GiB ({card_line})")
-
-  from torch.profiler import ProfilerActivity, profile
-  activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-  with profile(activities=activities) as prof:
-    start = time.perf_counter()
-    steps(PROFILED_STEPS)
-    wall_us = (time.perf_counter() - start) * 1e6
-  by_kernel = _device_us_by_kernel(prof)
-  busy_us = sum(by_kernel.values())
-  if busy_us <= 0:
-    say(f"{tag} profiler: no device time recorded; idle share not "
-        "measured")
-    return ms
-  busy_ms = busy_us / 1e3 / PROFILED_STEPS
-  say(f"{tag} device busy {busy_ms:.2f} ms/step (profiled, "
-      f"{PROFILED_STEPS} steps): idle share {1 - busy_ms / ms:.3f} of the "
-      f"unprofiled {ms:.2f} ms/step, {1 - busy_us / wall_us:.3f} of the "
-      f"profiled window's wall {wall_us / 1e3 / PROFILED_STEPS:.2f} ms/step "
-      f"({card_line})")
-  _report_families(tag, by_kernel, PROFILED_STEPS, "step")
-  return ms
-
-
-def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
+def phase_train(torch, workdir: str) -> None:
   """``main --mode train`` in process at full width in ``workdir``: 10
-  steps with a snapshot sample grid, then a resume to step 20. Returns the
-  forward and backward kernel launch counts of the two runs and the train
-  step's wall ms at batch 128."""
+  steps with a snapshot sample grid, then a resume to step 20: its
+  checkpoints, samples, launches and replayed resblock graphs."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import checkpoint, configs, main
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -1383,21 +650,15 @@ def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
   initial = [p.detach() for p in mutils.create_model(
       config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()
              if p.requires_grad]
-  attn.flash_attention_launches = 0
-  attn.flash_attention_backward_launches = 0
+  _reset()
   graphs_before = [_graph(n) for n in ("capture", "replay", "eager")]
   runs = []
   for n_iters, sampling_on in ((10, True), (20, False)):
-    start = time.perf_counter()
     runs.append(main.main(
         ["--config", FLAGSHIP, "--workdir", workdir, "--mode", "train",
          f"--config.training.n_iters={n_iters}",
          f"--config.training.snapshot_sampling={sampling_on}"] + flags))
-    say(f"[train] run to step {n_iters} from step "
-        f"{runs[-1]['initial_step']}: {time.perf_counter() - start:.1f} s "
-        f"wall (checkpoints, eval and sampling included)")
-  launches = (attn.flash_attention_launches,
-              attn.flash_attention_backward_launches)
+  launches = tuple(_counts().values())
   log = open(os.path.join(workdir, "stdout.txt")).read()
   check("Starting training loop at step 10" in log,
         "the resumed run did not start at step 10")
@@ -1443,7 +704,6 @@ def phase_train(torch, attn, card_line: str, workdir: str) -> tuple:
   check((captures, replays, eager) == (len(runs), 44 * steps, 0),
         f"[train] graph captures {captures}, replays {replays}, eager "
         f"calls {eager}, want {len(runs)}, {44 * steps}, 0")
-  return launches + (phase_train_time(torch, config, card_line),)
 
 
 def _write_eval_data(root: str, size: int,
@@ -1459,18 +719,16 @@ def _write_eval_data(root: str, size: int,
   return root
 
 
-def phase_eval(torch, attn, workdir: str, card_line: str) -> tuple:
+def phase_eval(workdir: str) -> None:
   """``main --mode eval`` in process on [train]'s checkpoint_2 with all
   three stages and the ODE sampler, in a working directory that holds the
-  dataset statistics (``assets/stats/``), then [stats] on its split.
-  Returns the eval run's forward and backward kernel launches."""
+  dataset statistics (``assets/stats/``), then [stats] on its split."""
   with tempfile.TemporaryDirectory() as base:
-    launches = _run_eval(torch, attn, workdir, base, card_line)
-    phase_stats(torch, base, card_line)
-    return launches
+    _run_eval(workdir, base)
+    phase_stats(base)
 
 
-def _run_eval(torch, attn, workdir: str, base: str, card_line: str) -> tuple:
+def _run_eval(workdir: str, base: str) -> None:
   import numpy as np
   from score_sde_pytorch_tpu_torch import inception, main
   size = 32
@@ -1503,15 +761,11 @@ def _run_eval(torch, attn, workdir: str, base: str, card_line: str) -> tuple:
   os.environ["INCEPTION_WEIGHTS_NPZ"] = weights
   os.chdir(base)
   try:
-    attn.flash_attention_launches = 0
-    attn.flash_attention_backward_launches = 0
-    start = time.perf_counter()
+    _reset()
     (record,) = main.main(["--config", FLAGSHIP, "--workdir", workdir,
                            "--mode", "eval", "--device", "cuda"]
                           + [f"--config.{k}={v}" for k, v in overrides.items()])
-    seconds = time.perf_counter() - start
-    launches = (attn.flash_attention_launches,
-                attn.flash_attention_backward_launches)
+    launches = tuple(_counts().values())
   finally:
     os.chdir(cwd)
     del os.environ["INCEPTION_WEIGHTS_NPZ"]
@@ -1535,15 +789,11 @@ def _run_eval(torch, attn, workdir: str, base: str, card_line: str) -> tuple:
   drift_evals = sum(record["bpd_nfe"])
   want = (ATTN_PER_FORWARD * (1 + drift_evals + sum(record["sampling_nfe"])),
           ATTN_PER_FORWARD * drift_evals)
-  say(f"[eval] main --mode eval: {seconds:.1f} s wall; eval loss "
-      f"{record['mean_loss']:.6g}; bits/dim {record['bpd']:.6f} (mean of "
-      f"{5 * EVAL_BATCH}), RK45 NFE per integration {record['bpd_nfe']}, "
-      f"seconds per bpd batch "
-      f"{[round(x, 3) for x in record['bpd_seconds']]} ({card_line})")
-  say(f"[eval] ODE sampler: NFE {record['sampling_nfe']} in "
-      f"{[round(x, 3) for x in record['sampling_seconds']]} s at batch "
-      f"{EVAL_BATCH}; Inception stage {record['inception_seconds'][0]:.3f} s "
-      f"(weights load included); random-weights scores {record['scores']}")
+  say(f"[eval] main --mode eval: eval loss {record['mean_loss']:.6g}; "
+      f"bits/dim {record['bpd']:.6f} (mean of {5 * EVAL_BATCH}), RK45 NFE "
+      f"per integration {record['bpd_nfe']}; ODE sampler NFE "
+      f"{record['sampling_nfe']} at batch {EVAL_BATCH}; random-weights "
+      f"scores {record['scores']}")
   say(f"[eval] kernel launches: forward {launches[0]} = {ATTN_PER_FORWARD} x "
       f"(1 loss batch + {drift_evals} bpd drift evaluations + "
       f"{sum(record['sampling_nfe'])} sampling NFE), backward calls "
@@ -1553,21 +803,15 @@ def _run_eval(torch, attn, workdir: str, base: str, card_line: str) -> tuple:
   check(launches == want, f"eval launches {launches}, want {want}")
   check(all(math.isfinite(v) for v in record["scores"].values()),
         f"scores {record['scores']}")
-  return launches
 
 
-
-def phase_eval_checks(torch, attn, config, model, workdir: str,
-                      card_line: str) -> None:
+def phase_eval_checks(torch, attn, config, model, workdir: str) -> None:
   """With TF32 off: the divergence of the full-width drift through the
   kernels vs through the plain attention (``model`` at unit gain), and the
-  card's Inception features vs the CPU's. Then, at PyTorch's defaults, the
-  time of one augmented drift evaluation (forward + vjp) vs the plain
-  forward at batch 64 and the attention kernels' share of its device time,
-  the peak memory of a chunked evaluation at batch 1024, and the bits/dim
-  of one batch with TF32 on vs off at one fixed probe."""
+  card's Inception features vs the CPU's. Then the bits/dim of one batch
+  with TF32 on vs off at one fixed probe, and, at PyTorch's defaults, the
+  peak memory of a chunked augmented drift evaluation at batch 1024."""
   import numpy as np
-  from torch.profiler import ProfilerActivity, profile
   from score_sde_pytorch_tpu_torch import checkpoint, datasets, inception
   from score_sde_pytorch_tpu_torch import likelihood, sde as sde_lib
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -1590,10 +834,10 @@ def phase_eval_checks(torch, attn, config, model, workdir: str,
   y, eps = probe(DIV_BATCH)
   with likelihood.frozen(model):
     aug = likelihood.get_augmented_drift(sde, model, eps)
-    attn.flash_attention_backward_launches = 0
+    _reset()
     drift_k, div_k = aug(y, 0.5)
     torch.cuda.synchronize()
-    bwd = attn.flash_attention_backward_launches
+    bwd = _counts()["backward"]
     with mock.patch.object(attn, "attention", attn.dense_attention):
       drift_p, div_p = aug(y, 0.5)
   rel = (div_k - div_p).abs().max().item() / div_p.abs().max().item()
@@ -1622,20 +866,6 @@ def phase_eval_checks(torch, attn, config, model, workdir: str,
       + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
   check(all(v <= INCEPTION_TOL for v in err.values()),
         f"Inception card vs CPU {err}")
-  set_tf32(True)
-  feats = inception.InceptionV3Features("", device="cuda", params=params)
-  many = np.random.default_rng(10).integers(
-      0, 256, (4 * feats.batch, size, size, 3), dtype=np.uint8)
-  feats(many[:feats.batch])  # warm-up: cuDNN's first-call set-up
-  torch.cuda.synchronize()
-  start = time.perf_counter()
-  feats(many)
-  rate = many.shape[0] / (time.perf_counter() - start)
-  say(f"[eval-time] Inception (pool_3 + logits, {size}x{size} -> 299x299) on "
-      f"the card: {rate:.1f} images/s over {many.shape[0]} images at batch "
-      f"{feats.batch}, PyTorch's default TF32 ({card_line})")
-  del feats
-  set_tf32(False)
 
   # Bits/dim of one batch with TF32 off and on, one probe, [train]'s
   # checkpoint (EMA weights), the eval split's first dequantized batch.
@@ -1664,69 +894,32 @@ def phase_eval_checks(torch, attn, config, model, workdir: str,
 
   # As a user runs it: PyTorch's default TF32 settings.
   set_tf32(True)
-  y, eps = probe(DRIFT_BATCH)
-  score_fn = mutils.get_score_fn(sde, model, train=False, continuous=True)
-  t = torch.full((DRIFT_BATCH,), 0.5, device="cuda")
+  y, eps = probe(DRIFT_BIG_BATCH)
   with likelihood.frozen(model):
-    aug = likelihood.get_augmented_drift(sde, model, eps)
-    ms = time_ms(torch, lambda: aug(y, 0.5), iters=10)
-    with torch.no_grad():
-      fwd_ms = time_ms(torch, lambda: sde.reverse(
-          score_fn, probability_flow=True).sde(y[0], t)[0], iters=10)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      start = time.perf_counter()
-      for _ in range(3):
-        aug(y, 0.5)
-      torch.cuda.synchronize()
-      wall_ms = (time.perf_counter() - start) * 1e3 / 3
-    by_kernel = _device_us_by_kernel(prof)
-    busy_ms = sum(by_kernel.values()) / 1e3 / 3
-    attn_ms = {cat: sum(us for name, us in by_kernel.items()
-                        if _kernel_category(name) == cat) / 1e3 / 3
-               for cat in ("attention forward", "attention backward")}
-    say(f"[eval-time] augmented drift (forward + vjp) at batch {DRIFT_BATCH}: "
-        f"{ms:.2f} ms vs the drift's forward alone {fwd_ms:.2f} ms "
-        f"({ms / fwd_ms:.2f}x) ({card_line})")
-    if busy_ms > 0:
-      say(f"[eval-time] profiled: device busy {busy_ms:.2f} ms per "
-          f"evaluation, idle share {1 - busy_ms / ms:.3f} of the unprofiled "
-          f"{ms:.2f} ms ({1 - busy_ms / wall_ms:.3f} of the profiled); "
-          f"attention forward {attn_ms['attention forward']:.3f} ms + "
-          f"backward {attn_ms['attention backward']:.3f} ms = "
-          f"{sum(attn_ms.values()) / busy_ms:.1%} of device time")
-      _report_families("[eval-time]", by_kernel, 3, "evaluation")
-    else:
-      say("[eval-time] profiler: no device time recorded; shares not "
-          "measured")
-    y, eps = probe(DRIFT_BIG_BATCH)
     aug = likelihood.get_augmented_drift(sde, model, eps)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    start = time.perf_counter()
     drift, div = aug(y, 0.5)
     torch.cuda.synchronize()
-    big_ms = (time.perf_counter() - start) * 1e3
     peak = torch.cuda.max_memory_allocated()
   check(bool(torch.isfinite(div).all()) and drift.shape == y[0].shape,
         "batch-1024 drift evaluation not finite")
-  say(f"[eval-time] one augmented drift evaluation at batch "
-      f"{DRIFT_BIG_BATCH} in chunks of {likelihood.DRIFT_CHUNK}: {big_ms:.1f} "
-      f"ms (first call at this batch), peak max_memory_allocated "
-      f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above "
-      f"the {base / 2 ** 30:.2f} GiB held before it)")
+  say(f"[eval-check] one augmented drift evaluation at batch "
+      f"{DRIFT_BIG_BATCH} in chunks of {likelihood.DRIFT_CHUNK}: peak "
+      f"max_memory_allocated {peak / 2 ** 30:.2f} GiB "
+      f"({(peak - base) / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} GiB "
+      f"held before it)")
   (torch.backends.cuda.matmul.allow_tf32,
    torch.backends.cudnn.allow_tf32) = defaults
 
 
-def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
+def phase_vp_train(torch, workdir: str) -> None:
   """``main --mode train`` in process on the VP DDPM++ config at full width
   and batch 128: VP_TRAIN_STEPS steps with an Euler-Maruyama snapshot grid
-  (num_scales 50, one network evaluation a step), its checkpoint and the
-  launches checked; then the step's time, peak memory and device profile.
-  Returns the run's forward and backward kernel launches."""
+  (num_scales 25, one network evaluation a step), its checkpoint and the
+  launches checked."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import checkpoint, configs, main
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -1737,21 +930,18 @@ def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
   n_jitted = config.training.n_jitted_steps
   initial = [p.detach() for p in mutils.create_model(
       config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()]
-  attn.flash_attention_launches = 0
-  attn.flash_attention_backward_launches = 0
+  _reset()
   captured = _graph("capture")
-  start = time.perf_counter()
   with network_evals(torch) as evals:
     run = main.main(["--config", VP_CONFIG, "--workdir", workdir,
                      "--mode", "train"]
                     + [f"--config.{k}={v}" for k, v in flags.items()])
-  launches = (attn.flash_attention_launches,
-              attn.flash_attention_backward_launches)
+  launches = tuple(_counts().values())
   captures = _graph("capture") - captured
   say(f"[vp-train] main --mode train, {VP_TRAIN_STEPS} steps at batch "
       f"{TRAIN_BATCH}, snapshot sampling Euler-Maruyama at num_scales "
-      f"{SMOKE_SCALES}: {time.perf_counter() - start:.1f} s wall; losses "
-      f"{run['train_losses']}, eval {run['eval_losses']}")
+      f"{SMOKE_SCALES}: losses {run['train_losses']}, eval "
+      f"{run['eval_losses']}")
   seen = [v for _, v in run["train_losses"] + run["eval_losses"]]
   check(len(seen) == 4 and all(math.isfinite(v) for v in seen),
         f"[vp-train] logged losses {seen}")
@@ -1776,14 +966,11 @@ def phase_vp_train(torch, attn, card_line: str, workdir: str) -> tuple:
   check(evals[0] == want_evals, f"[vp-train] {evals[0]} network "
         f"evaluations, want {want_evals}")
   check(launches == want, f"[vp-train] launches {launches}, want {want}")
-  phase_train_time(torch, config, card_line, tag="[vp-train]")
-  return launches
 
 
-def phase_vp_eval(torch, attn, workdir: str, card_line: str) -> tuple:
+def phase_vp_eval(torch, workdir: str) -> None:
   """``main --mode eval`` in process on [vp-train]'s checkpoint_1 with the
-  loss and bits/dim stages on the small ``.npz`` test split of [eval].
-  Returns the forward and backward kernel launches."""
+  loss and bits/dim stages on the small ``.npz`` test split of [eval]."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import main
   with tempfile.TemporaryDirectory() as base:
@@ -1796,16 +983,12 @@ def phase_vp_eval(torch, attn, workdir: str, card_line: str) -> tuple:
                  "eval.enable_bpd": True, "eval.bpd_dataset": "train",
                  "eval.enable_sampling": False,
                  "data.dataset": "NPZ", "data.data_dir": data_dir}
-    attn.flash_attention_launches = 0
-    attn.flash_attention_backward_launches = 0
-    start = time.perf_counter()
+    _reset()
     with network_evals(torch) as evals:
       (record,) = main.main(
           ["--config", VP_CONFIG, "--workdir", workdir, "--mode", "eval"]
           + [f"--config.{k}={v}" for k, v in overrides.items()])
-    seconds = time.perf_counter() - start
-  launches = (attn.flash_attention_launches,
-              attn.flash_attention_backward_launches)
+  launches = tuple(_counts().values())
   with np.load(os.path.join(workdir, "eval", "train_ckpt_1_bpd.npz")) as z:
     bpd = z["bpd"]
   check(bpd.shape == (EVAL_BATCH,) and np.isfinite(bpd).all(),
@@ -1815,24 +998,20 @@ def phase_vp_eval(torch, attn, workdir: str, card_line: str) -> tuple:
         f"[vp-eval] {evals[0]} network evaluations, want 1 + {drift_evals}")
   want = (ATTN_PER_FORWARD * (1 + drift_evals),
           ATTN_PER_FORWARD * drift_evals)
-  say(f"[vp-eval] main --mode eval: {seconds:.1f} s wall; eval loss "
-      f"{record['mean_loss']:.6g}; bits/dim {record['bpd']:.6f} (mean of "
-      f"{bpd.size}), RK45 NFE per integration {record['bpd_nfe']}, seconds "
-      f"per bpd batch {[round(x, 3) for x in record['bpd_seconds']]} "
-      f"({card_line})")
+  say(f"[vp-eval] main --mode eval: eval loss {record['mean_loss']:.6g}; "
+      f"bits/dim {record['bpd']:.6f} (mean of {bpd.size}), RK45 NFE per "
+      f"integration {record['bpd_nfe']}")
   say(f"[vp-eval] kernel launches: forward {launches[0]} = {ATTN_PER_FORWARD}"
       f" x (1 loss batch + {drift_evals} drift evaluations), backward calls "
       f"{launches[1]} = {ATTN_PER_FORWARD} x {drift_evals}")
   check(launches == want, f"[vp-eval] launches {launches}, want {want}")
-  return launches
 
 
-def phase_ddpm(torch, attn, card_line: str) -> int:
+def phase_ddpm(torch, attn) -> None:
   """vp/ddpm/cifar10.py at full width: a checkpoint of the seeded model,
   then (TF32 off) the unit-gain forward through the kernel against the
   plain attention and the CPU, then (PyTorch's defaults) ``main --mode
-  sample`` with ancestral sampling, 4 attention calls per evaluation.
-  Returns the sample run's forward kernel launches."""
+  sample`` with ancestral sampling, 4 attention calls per evaluation."""
   from score_sde_pytorch_tpu_torch import checkpoint, configs
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -1853,16 +1032,16 @@ def phase_ddpm(torch, attn, card_line: str) -> int:
       _tf32_restore(torch, defaults)
     del model
     say(f"[ddpm] {n_params} parameters; ancestral sampling (discrete VP)")
-    return phase_main_sample(
-        torch, attn, DDPM_CONFIG, workdir,
-        [f"model.num_scales={SMOKE_SCALES}"], DDPM_ATTN_PER_FORWARD,
-        SMOKE_SCALES, SMOKE_BATCH, "[ddpm]", card_line)
+    phase_main_sample(torch, DDPM_CONFIG, workdir,
+                      [f"model.num_scales={SMOKE_SCALES}"],
+                      DDPM_ATTN_PER_FORWARD, SMOKE_SCALES, SMOKE_BATCH,
+                      "[ddpm]")
 
 
-def phase_samplers(torch, attn, model, card_line: str) -> int:
+def phase_samplers(torch, model) -> None:
   """Every other sampling rule on the VP DDPM++ model at batch 64: finite
   samples, the network evaluations each rule makes, and 6 attention
-  launches per evaluation. Returns the forward kernel launches."""
+  launches per evaluation."""
   from score_sde_pytorch_tpu_torch import configs, datasets, sampling
   from score_sde_pytorch_tpu_torch import sde as sde_lib
   n, k = SAMPLERS_SCALES, FLOW_STEPS
@@ -1874,7 +1053,6 @@ def phase_samplers(torch, attn, model, card_line: str) -> int:
       ("dpmpp", dict(method="dpmpp", dpmpp_steps=k), k + 1),
       ("dpmpp stochastic",
        dict(method="dpmpp", dpmpp_steps=k, dpmpp_stochastic=True), k + 1)]
-  total = 0
   for name, settings, want in cases:
     config = configs.load_config(VP_CONFIG, [f"model.num_scales={n}"] + [
         f"sampling.{key}={value}" for key, value in settings.items()])
@@ -1883,19 +1061,13 @@ def phase_samplers(torch, attn, model, card_line: str) -> int:
         config, sde_lib.build_sde(config), model,
         (SAMPLERS_BATCH, size, size, 3),
         datasets.get_data_inverse_scaler(config))
-    attn.flash_attention_launches = 0
-    torch.cuda.synchronize()
-    start = time.perf_counter()
+    _reset()
     with network_evals(torch) as evals:
       samples, nfe = sampler(torch.Generator(device="cuda").manual_seed(11))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    launches = attn.flash_attention_launches
-    total += launches
-    say(f"[samplers] {name}: reported NFE {nfe}, {evals[0]} network "
-        f"evaluations, {launches} kernel launches; {seconds:.3f} s at batch "
-        f"{SAMPLERS_BATCH} = {seconds * 1e3 / evals[0]:.3f} ms/evaluation; "
-        f"max|sample| {samples.abs().max().item():.4g} ({card_line})")
+    launches = _counts()["forward"]
+    say(f"[samplers] {name} at batch {SAMPLERS_BATCH}: reported NFE {nfe}, "
+        f"{evals[0]} network evaluations, {launches} kernel launches; "
+        f"max|sample| {samples.abs().max().item():.4g}")
     check(bool(torch.isfinite(samples).all()), f"[samplers] {name}: "
           "samples not finite")
     check(evals[0] == want, f"[samplers] {name}: {evals[0]} evaluations, "
@@ -1903,18 +1075,16 @@ def phase_samplers(torch, attn, model, card_line: str) -> int:
     check(launches == ATTN_PER_FORWARD * evals[0],
           f"[samplers] {name}: {launches} launches, want {ATTN_PER_FORWARD}"
           f" x {evals[0]}")
-  return total
 
 
-def phase_train_run(torch, attn, config_path: str, workdir: str, flags: dict,
-                    per_forward: int, tag: str, resume_to: int = 0,
-                    card_line: str = "") -> tuple:
+def phase_train_run(torch, config_path: str, workdir: str, flags: dict,
+                    per_forward: int, tag: str, resume_to: int = 0) -> None:
   """``main --mode train`` in process with ``flags`` (snapshot sampling
   off), then, with ``resume_to``, a resume to that step: logged losses,
   numbered checkpoints, the resume, the network evaluations (train steps
   and eval forwards; remat recomputes resblocks, not the network) and the
   launches, ``per_forward`` forward launches per evaluation and backward
-  calls per train step. Returns the forward and backward launches."""
+  calls per train step."""
   from score_sde_pytorch_tpu_torch import checkpoint, configs, main
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   flags = dict(flags, **{"training.snapshot_sampling": False})
@@ -1924,25 +1094,20 @@ def phase_train_run(torch, attn, config_path: str, workdir: str, flags: dict,
   initial = [p.detach() for p in mutils.create_model(
       config, "cpu", torch.Generator().manual_seed(config.seed)).parameters()
              if p.requires_grad]
-  attn.flash_attention_launches = 0
-  attn.flash_attention_backward_launches = 0
+  _reset()
   captured = _graph("capture")
   runs = []
   with network_evals(torch) as evals:
     for n_iters in (tcfg.n_iters,) + ((resume_to,) if resume_to else ()):
-      start = time.perf_counter()
       runs.append(main.main(
           ["--config", config_path, "--workdir", workdir, "--mode", "train"]
           + [f"--config.{k}={v}" for k, v in flags.items()]
           + [f"--config.training.n_iters={n_iters}"]))
       say(f"{tag} main --mode train to step {n_iters} from step "
           f"{runs[-1]['initial_step']} at batch {tcfg.batch_size} (remat "
-          f"{config.model.get('remat', False)}): "
-          f"{time.perf_counter() - start:.1f} s wall (checkpoints and eval "
-          f"included); losses {runs[-1]['train_losses']}, eval "
-          f"{runs[-1]['eval_losses']} ({card_line})")
-  launches = (attn.flash_attention_launches,
-              attn.flash_attention_backward_launches)
+          f"{config.model.get('remat', False)}): losses "
+          f"{runs[-1]['train_losses']}, eval {runs[-1]['eval_losses']}")
+  launches = tuple(_counts().values())
   steps = resume_to or tcfg.n_iters
   if resume_to:
     log = open(os.path.join(workdir, "stdout.txt")).read()
@@ -1968,28 +1133,25 @@ def phase_train_run(torch, attn, config_path: str, workdir: str, flags: dict,
         f"{tag} {evals[0]} network evaluations, want {steps} + "
         f"{eval_forwards}")
   check(launches == want, f"{tag} launches {launches}, want {want}")
-  return launches
 
 
-def phase_main_sample(torch, attn, config_path: str, workdir: str,
-                      overrides: list, per_forward: int, want_evals: int,
-                      batch: int, tag: str, card_line: str,
-                      rounds: int = 1) -> int:
+def phase_main_sample(torch, config_path: str, workdir: str, overrides: list,
+                      per_forward: int, want_evals: int, batch: int, tag: str,
+                      rounds: int = 1) -> None:
   """``main --mode sample`` in process on ``workdir``'s latest checkpoint,
   ``rounds`` rounds of ``batch``: the samples, ``want_evals`` counted
   network evaluations per round and ``per_forward`` launches per
-  evaluation. Returns the launches."""
+  evaluation."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import configs, main
   size = configs.load_config(config_path, overrides).data.image_size
-  attn.flash_attention_launches = 0
+  _reset()
   with network_evals(torch) as evals:
-    records = main.main(["--config", config_path, "--workdir", workdir,
-                         "--mode", "sample", "--num_samples",
-                         str(batch * rounds),
-                         f"--config.eval.batch_size={batch}"]
-                        + [f"--config.{o}" for o in overrides])
-  launches = attn.flash_attention_launches
+    main.main(["--config", config_path, "--workdir", workdir, "--mode",
+               "sample", "--num_samples", str(batch * rounds),
+               f"--config.eval.batch_size={batch}"]
+              + [f"--config.{o}" for o in overrides])
+  launches = _counts()["forward"]
   for r in range(rounds):
     samples = np.load(os.path.join(workdir, "generated",
                                    f"samples_{r}.npz"))["samples"]
@@ -2001,38 +1163,33 @@ def phase_main_sample(torch, attn, config_path: str, workdir: str,
         f"{rounds}")
   check(launches == per_forward * evals[0],
         f"{tag} {launches} launches, want {per_forward} x {evals[0]}")
-  for r, rec in enumerate(records):
-    say(f"{tag} main --mode sample ({' '.join(overrides)}), round {r}: "
-        f"{rec['samples']} samples in {rec['seconds']:.3f} s, reported NFE "
-        f"{rec['nfe']}, {want_evals} network evaluations: "
-        f"{rec['seconds'] * 1e3 / want_evals:.3f} ms/evaluation at batch "
-        f"{batch} ({card_line})")
-  say(f"{tag} {launches} kernel launches = {per_forward} x {evals[0]} "
-      f"network evaluations")
-  return launches
+  say(f"{tag} main --mode sample ({' '.join(overrides)}): {rounds} "
+      f"round(s) of {batch}, {launches} kernel launches = {per_forward} x "
+      f"{evals[0]} network evaluations")
 
 
-def train_step_peak(torch, attn, config, batch_size: int,
-                    steps: int = 1) -> dict:
-  """The train step of ``config`` at ``batch_size``: one warm-up step, then
-  ``steps`` timed ones; wall ms per step, peak max_memory_allocated over
-  all of them, and the attention launches per step."""
+def train_step_peak(torch, config, batch_size: int, per_forward: int,
+                    tag: str) -> float:
+  """Two train steps of ``config`` at ``batch_size`` on the card (the
+  first sets up Adam's state), each with ``per_forward`` forward launches
+  and backward calls (and one forward's more for each resblock graph
+  capture). Returns the peak max_memory_allocated over both, in GiB."""
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
-  run = _train_step(torch, config, batch_size)
-  run(1)  # warm-up: cuDNN's first-call set-up, Adam's state
-  attn.flash_attention_launches = 0
-  attn.flash_attention_backward_launches = 0
-  start = time.perf_counter()
-  run(steps)
-  ms = (time.perf_counter() - start) * 1e3 / steps
-  return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "launches": (attn.flash_attention_launches / steps,
-                       attn.flash_attention_backward_launches / steps)}
+  _reset()
+  captured = _graph("capture")
+  _train_step(torch, config, batch_size)(2)
+  captures = _graph("capture") - captured
+  launches = _counts()
+  want = {"forward": per_forward * (2 + captures),
+          "backward": per_forward * 2}
+  check(launches == want, f"{tag} launches in 2 steps {launches}, want "
+        f"{want}")
+  return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def phase_remat_memory(torch, attn, config, card_line: str) -> None:
+def phase_remat_memory(torch, config) -> None:
   """[hires-memory]: the church train step at its batch of 64 with remat,
   then without remat at the largest batch of NO_REMAT_BATCHES that fits
   (a batch that runs out of device memory is reported and the next smaller
@@ -2040,37 +1197,35 @@ def phase_remat_memory(torch, attn, config, card_line: str) -> None:
   import gc
   from score_sde_pytorch_tpu_torch import configs
   batch = config.training.batch_size
-  rec = train_step_peak(torch, attn, config, batch)
-  say(f"[hires-memory] remat on, batch {batch}: {rec['ms']:.1f} ms/step, "
-      f"peak max_memory_allocated {rec['peak_gib']:.2f} GiB; attention "
-      f"{rec['launches'][0]:g} forward launches and {rec['launches'][1]:g} "
-      f"backward calls per step ({card_line})")
-  check(rec["launches"] == (HIRES_ATTN_PER_FORWARD, HIRES_ATTN_PER_FORWARD),
-        f"[hires-memory] launches per step {rec['launches']}")
+  peak = train_step_peak(torch, config, batch, HIRES_ATTN_PER_FORWARD,
+                         "[hires-memory]")
+  say(f"[hires-memory] remat on, batch {batch}: peak max_memory_allocated "
+      f"{peak:.2f} GiB")
   plain = configs.load_config(CHURCH_CONFIG, ["model.remat=False"])
   for b in NO_REMAT_BATCHES:
     try:
-      rec = train_step_peak(torch, attn, plain, b)
+      peak = train_step_peak(torch, plain, b, HIRES_ATTN_PER_FORWARD,
+                             "[hires-memory]")
     except torch.cuda.OutOfMemoryError:
-      rec = None
+      peak = None
     gc.collect()
     torch.cuda.empty_cache()
-    if rec is None:
+    if peak is None:
       say(f"[hires-memory] remat off, batch {b}: out of device memory")
       continue
     say(f"[hires-memory] remat off, batch {b} (the largest of "
-        f"{NO_REMAT_BATCHES} that fits): {rec['ms']:.1f} ms/step, peak "
-        f"max_memory_allocated {rec['peak_gib']:.2f} GiB ({card_line})")
+        f"{NO_REMAT_BATCHES} that fits): peak max_memory_allocated "
+        f"{peak:.2f} GiB")
     return
   check(False, f"[hires-memory] no batch of {NO_REMAT_BATCHES} fits "
         "without remat")
 
 
-def phase_controllable(torch, attn, config, model, card_line: str) -> int:
+def phase_controllable(torch, config, model) -> None:
   """[controllable]: inpainting (the top half known) and colorization of a
   batch at full width with the config's PC sampler at its cut num_scales:
   the known half and the gray channel kept within 1e-3, finite images, and
-  the attention launches per counted evaluation. Returns the launches."""
+  the attention launches per counted evaluation."""
   from score_sde_pytorch_tpu_torch import controllable_generation as cg
   from score_sde_pytorch_tpu_torch import datasets, sampling
   from score_sde_pytorch_tpu_torch import sde as sde_lib
@@ -2086,20 +1241,14 @@ def phase_controllable(torch, attn, config, model, card_line: str) -> int:
   mask = torch.zeros_like(data)
   mask[:, :size // 2] = 1.0
   gray = data[..., :1].expand(-1, -1, -1, 3)
-  total = 0
   for name, run in (
       ("inpaint", lambda: cg.get_pc_inpainter(*args, **kwargs)(gen, data,
                                                                mask)),
       ("colorize", lambda: cg.get_pc_colorizer(*args, **kwargs)(gen, gray))):
-    attn.flash_attention_launches = 0
-    torch.cuda.synchronize()
-    start = time.perf_counter()
+    _reset()
     with network_evals(torch) as evals:
       out = run()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    launches = attn.flash_attention_launches
-    total += launches
+    launches = _counts()["forward"]
     check(out.shape == data.shape and bool(torch.isfinite(out).all()),
           f"[controllable] {name}: {tuple(out.shape)}, finite "
           f"{bool(torch.isfinite(out).all())}")
@@ -2111,28 +1260,24 @@ def phase_controllable(torch, attn, config, model, card_line: str) -> int:
     want = (scfg.n_steps_each + 1) * config.model.num_scales
     say(f"[controllable] {name} at batch {HIRES_BATCH}, {size}x{size}, "
         f"{scfg.predictor} + {scfg.corrector}, num_scales "
-        f"{config.model.num_scales}: {seconds:.3f} s, {evals[0]} network "
-        f"evaluations ({seconds * 1e3 / evals[0]:.3f} ms each), "
-        f"{launches} kernel launches; max |kept - given| {err:.3g} "
-        f"({card_line})")
+        f"{config.model.num_scales}: {evals[0]} network evaluations, "
+        f"{launches} kernel launches; max |kept - given| {err:.3g}")
     check(err <= 1e-3, f"[controllable] {name}: kept region off by {err:.3g}")
     check(evals[0] == want, f"[controllable] {name}: {evals[0]} evaluations, "
           f"want {want}")
     check(launches == HIRES_ATTN_PER_FORWARD * evals[0],
           f"[controllable] {name}: {launches} launches, want "
           f"{HIRES_ATTN_PER_FORWARD} x {evals[0]}")
-  return total
 
 
-def phase_hires(torch, attn, card_line: str) -> tuple:
+def phase_hires(torch, attn) -> None:
   """ve/church_ncsnpp_continuous.py at full width (output and input
   pyramids, remat): [hires-sample] from the seeded model's checkpoint;
   then at unit gain [controllable], and with TF32 off [hires-forward] and
   [hires-grad] through the kernels against the plain attention, and the
   multiattn file's forward
   (attention at 32² too); [hires-train] ``main --mode train`` at batch 16
-  and a resume; [hires-memory]. Returns the forward and backward
-  launches of the counted runs."""
+  and a resume; [hires-memory]."""
   from score_sde_pytorch_tpu_torch import checkpoint, configs
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -2148,16 +1293,16 @@ def phase_hires(torch, attn, card_line: str) -> tuple:
   with tempfile.TemporaryDirectory() as workdir:
     checkpoint.save_checkpoint(checkpoint.numbered_path(workdir, 1), model,
                                config, step=1)
-    forward = phase_main_sample(
-        torch, attn, CHURCH_CONFIG, workdir,
-        [f"model.num_scales={HIRES_SCALES}"], HIRES_ATTN_PER_FORWARD,
+    phase_main_sample(
+        torch, CHURCH_CONFIG, workdir, [f"model.num_scales={HIRES_SCALES}"],
+        HIRES_ATTN_PER_FORWARD,
         (config.sampling.n_steps_each + 1) * HIRES_SCALES, HIRES_BATCH,
-        "[hires-sample]", card_line)
+        "[hires-sample]")
   # At its init the network's output convs are zero (init_scale 0), so the
   # Langevin step, scaled by 1/|score|², would throw the unknown channels
   # far out; at unit gain the score has the scale of a trained one.
   unit_gain_(torch, model, layers, seed=config.seed)
-  forward += phase_controllable(torch, attn, config, model, card_line)
+  phase_controllable(torch, config, model)
   defaults = _tf32_off(torch)
   try:
     phase_forward(torch, attn, config, model, tag="[hires-forward]",
@@ -2180,22 +1325,18 @@ def phase_hires(torch, attn, card_line: str) -> tuple:
   with tempfile.TemporaryDirectory() as workdir:
     flags = dict(short_train_flags(),
                  **{"training.batch_size": HIRES_TRAIN_BATCH})
-    train = phase_train_run(torch, attn, CHURCH_CONFIG, workdir,
-                            flags, HIRES_ATTN_PER_FORWARD,
-                            "[hires-train]", resume_to=2 * SHORT_STEPS,
-                            card_line=card_line)
-  phase_remat_memory(torch, attn, configs.load_config(CHURCH_CONFIG),
-                     card_line)
-  return forward + train[0], train[1]
+    phase_train_run(torch, CHURCH_CONFIG, workdir, flags,
+                    HIRES_ATTN_PER_FORWARD, "[hires-train]",
+                    resume_to=2 * SHORT_STEPS)
+  phase_remat_memory(torch, configs.load_config(CHURCH_CONFIG))
 
 
-def phase_ddpm256(torch, attn, card_line: str) -> tuple:
+def phase_ddpm256(torch, attn) -> None:
   """vp/ddpm/church.py at full width (attention at C = 512): [ddpm-256]
   the unit-gain forward and a DDPM-loss gradient through the kernels
   against the plain attention (TF32 off); ``main --mode train`` at batch 8
   (no remat in this model) and ``--mode sample`` (ancestral sampling at a
-  cut num_scales) on its checkpoint. Returns the forward and backward
-  launches of the counted runs."""
+  cut num_scales) on its checkpoint."""
   from score_sde_pytorch_tpu_torch import configs
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -2221,23 +1362,20 @@ def phase_ddpm256(torch, attn, card_line: str) -> tuple:
            "training.eval_freq": 5, "training.snapshot_freq": 5,
            "training.snapshot_freq_for_preemption": 5}
   with tempfile.TemporaryDirectory() as workdir:
-    train = phase_train_run(torch, attn, DDPM256_CONFIG, workdir, flags,
-                            DDPM256_ATTN_PER_FORWARD, "[ddpm-256-train]",
-                            card_line=card_line)
-    sample = phase_main_sample(
-        torch, attn, DDPM256_CONFIG, workdir,
-        [f"model.num_scales={DDPM256_SCALES}"], DDPM256_ATTN_PER_FORWARD,
-        DDPM256_SCALES, HIRES_BATCH, "[ddpm-256-sample]", card_line)
-  return train[0] + sample, train[1]
+    phase_train_run(torch, DDPM256_CONFIG, workdir, flags,
+                    DDPM256_ATTN_PER_FORWARD, "[ddpm-256-train]")
+    phase_main_sample(
+        torch, DDPM256_CONFIG, workdir, [f"model.num_scales={DDPM256_SCALES}"],
+        DDPM256_ATTN_PER_FORWARD, DDPM256_SCALES, HIRES_BATCH,
+        "[ddpm-256-sample]")
 
 
-def phase_hires_1024(torch, attn, card_line: str) -> tuple:
+def phase_hires_1024(torch, attn) -> None:
   """ve/celebahq_ncsnpp_continuous.py at full width (1024², attention at
   C = 512): [hires-1024] the unit-gain forward through the kernels against
   the plain attention (TF32 off), then the train step with remat at its
   batch of 8, driven directly (the synthetic split at 1024² is 640 images
-  of 3 MB), with its peak memory. Returns the forward and backward
-  launches of the timed train steps."""
+  of 3 MB), with its peak memory."""
   from score_sde_pytorch_tpu_torch import configs
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -2255,84 +1393,10 @@ def phase_hires_1024(torch, attn, card_line: str) -> tuple:
   finally:
     _tf32_restore(torch, defaults)
   del model
-  steps = 2
-  rec = train_step_peak(torch, attn, config, HQ1024_TRAIN_BATCH, steps=steps)
+  peak = train_step_peak(torch, config, HQ1024_TRAIN_BATCH,
+                         HQ1024_ATTN_PER_FORWARD, "[hires-1024]")
   say(f"[hires-1024] train step with remat at batch {HQ1024_TRAIN_BATCH}: "
-      f"{rec['ms']:.1f} ms/step, peak max_memory_allocated "
-      f"{rec['peak_gib']:.2f} GiB; {rec['launches'][0]:g} forward launches "
-      f"and {rec['launches'][1]:g} backward calls per step ({card_line})")
-  check(rec["launches"] == (HQ1024_ATTN_PER_FORWARD,
-                            HQ1024_ATTN_PER_FORWARD),
-        f"[hires-1024] launches per step {rec['launches']}")
-  return (HQ1024_ATTN_PER_FORWARD * steps, HQ1024_ATTN_PER_FORWARD * steps)
-
-
-def phase_kernel_bf16(torch, attn, card_line: str) -> None:
-  """[kernel-bf16]: the attention kernels in bf16 at the bf16 files' shapes
-  (TF32 off): forward and backward against the plain bf16 version and
-  against fp64, the kernel's error to fp64 no larger than the plain bf16
-  version's (x1.5 + 1e-3, the bf16 gate of [kernel] and [kernel-bwd]); the
-  times of the kernel, the plain version and
-  F.scaled_dot_product_attention beside the bound at bf16's tensor-core
-  peak. Comparison launches only: not counted toward the main path."""
-  sdpa = torch.nn.functional.scaled_dot_product_attention
-  gen = torch.Generator(device="cuda").manual_seed(7)
-
-  def plain_bwd(q, k, v, dout):
-    return attn.dense_attention_backward(q, k, v,
-                                         attn.dense_attention(q, k, v), dout)
-
-  for shape in BF16_SHAPES:
-    b, n_q, n_kv, c = _lengths(shape)
-    row = _row(b, n_q, n_kv, c)
-    q, k, v, dout = (t.bfloat16() for t in _qkv(torch, b, n_q, n_kv, c, gen,
-                                                dout=True))
-    exact = attn.dense_attention(*(t.double() for t in (q, k, v)))
-    err = _max_err(attn.attention(q, k, v).double(), exact)
-    err_plain = _max_err(attn.dense_attention(q, k, v).double(), exact)
-    check(err <= 1.5 * err_plain + 1e-3,
-          f"[kernel-bf16] forward at {row}: kernel {err:.3g} vs plain "
-          f"{err_plain:.3g} from fp64")
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    attn.attention(*leaves).backward(dout)
-    got = [t.grad for t in leaves]
-    wide = [t.double() for t in (q, k, v, dout)]
-    exact_g = plain_bwd(*wide)
-    err_b = max(_max_err(g.double(), e) for g, e in zip(got, exact_g))
-    err_b_plain = max(_max_err(g.double(), e) for g, e in
-                      zip(plain_bwd(q, k, v, dout), exact_g))
-    check(err_b <= 1.5 * err_b_plain + 1e-3,
-          f"[kernel-bf16] backward at {row}: kernel {err_b:.3g} vs "
-          f"plain {err_b_plain:.3g} from fp64")
-    del exact, exact_g, wide
-    q4, k4, v4 = (t[:, None] for t in (q, k, v))
-    ms = time_ms(torch, lambda: attn.attention(q, k, v))
-    plain_ms = time_ms(torch, lambda: attn.dense_attention(q, k, v))
-    library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4))
-    bound_ms, bound_by = bound(4.0 * b * n_q * n_kv * c,
-                               2.0 * b * (n_q + n_kv) * c * 2, BF16_FLOPS)
-    out, lse = attn._launch_flash_attention(q, k, v, with_lse=True)
-    bwd_ms = time_ms(torch, lambda: attn._launch_flash_attention_backward(
-        q, k, v, out, lse, dout), iters=20)
-    plain_bwd_ms = time_ms(torch, lambda: attn.dense_attention_backward(
-        q, k, v, out, dout), iters=20)
-    bwd_bound_ms, bwd_bound_by = bound(
-        10.0 * b * n_q * n_kv * c,
-        4.0 * b * (n_q + n_kv) * c * 2 + b * n_q * 4, BF16_FLOPS)
-    grads = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    both_ms = time_ms(torch, lambda: torch.autograd.grad(
-        attn.attention(*grads), grads, dout), iters=20)
-    sdpa_both_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa(*(t[:, None] for t in grads)), grads, dout[:, None]), iters=20)
-    say(f"[kernel-bf16] {row}: vs fp64 forward kernel {err:.3g} "
-        f"plain {err_plain:.3g}, backward kernel {err_b:.3g} plain "
-        f"{err_b_plain:.3g}")
-    say(f"[kernel-bf16]   forward ms: kernel {ms:.4f} plain {plain_ms:.4f} "
-        f"sdpa {library_ms:.4f} bound {bound_ms:.4f} ({bound_by}), share of "
-        f"bound {bound_ms / ms:.3f} | backward ms: kernel {bwd_ms:.4f} plain "
-        f"{plain_bwd_ms:.4f} bound {bwd_bound_ms:.4f} ({bwd_bound_by}), "
-        f"share {bwd_bound_ms / bwd_ms:.3f} | forward+backward: kernels "
-        f"{both_ms:.4f} sdpa {sdpa_both_ms:.4f} ({card_line})")
+      f"peak max_memory_allocated {peak:.2f} GiB")
 
 
 def _forward_card_vs_cpu(torch, config, model, labels, tag: str,
@@ -2340,17 +1404,16 @@ def _forward_card_vs_cpu(torch, config, model, labels, tag: str,
   """The full-width forward on the card against the CPU forward of the same
   weights (TF32 off), with no attention launch; returns the card's
   output's max |value|."""
-  from score_sde_pytorch_tpu_torch.ops import attention as attn
   gen = torch.Generator(device="cuda").manual_seed(1)
   size = config.data.image_size
   x = torch.rand(batch, 3, size, size, device="cuda", generator=gen)
-  before = attn.flash_attention_launches
+  before = _counts()["forward"]
   with torch.no_grad():
     out = model(x, labels)
     torch.cuda.synchronize()
     on_cpu = model.to("cpu")(x[:cpu_batch].cpu(), labels[:cpu_batch].cpu())
   model.to("cuda")
-  launches = attn.flash_attention_launches - before
+  launches = _counts()["forward"] - before
   scale = on_cpu.abs().max().item()
   rel = (out[:cpu_batch].cpu() - on_cpu).abs().max().item() / scale
   say(f"{tag} full-width {config.model.name} B={batch}: max|out| "
@@ -2368,7 +1431,7 @@ def _ncsn_labels(torch, config, batch: int):
                        generator=gen)
 
 
-def phase_ncsn(torch, attn, card_line: str) -> None:
+def phase_ncsn(torch) -> None:
   """[ncsn]: ve/ncsn/cifar10.py (NCSN v1, conditional InstanceNorm++, 10
   scales, annealed Langevin dynamics with 100 steps per scale) at full
   width: the forward on the card against the CPU (TF32 off); ``main --mode
@@ -2402,15 +1465,14 @@ def phase_ncsn(torch, attn, card_line: str) -> None:
            "training.snapshot_freq_for_preemption": 5}
   n_steps = NCSN_STEP_STEPS
   with tempfile.TemporaryDirectory() as workdir:
-    phase_train_run(torch, attn, NCSN_CONFIG, workdir, flags, 0,
-                    "[ncsn-train]", resume_to=2 * NCSN_TRAIN_STEPS,
-                    card_line=card_line)
+    phase_train_run(torch, NCSN_CONFIG, workdir, flags, 0, "[ncsn-train]",
+                    resume_to=2 * NCSN_TRAIN_STEPS)
     # The "none" predictor evaluates nothing: num_scales x n_steps
     # evaluations under a reported NFE of num_scales x (n_steps + 1).
-    phase_main_sample(torch, attn, NCSN_CONFIG, workdir,
+    phase_main_sample(torch, NCSN_CONFIG, workdir,
                       [f"sampling.n_steps_each={NCSN_SAMPLE_STEPS}"], 0,
                       config.model.num_scales * NCSN_SAMPLE_STEPS,
-                      NCSN_SAMPLE_BATCH, "[ncsn-sample]", card_line)
+                      NCSN_SAMPLE_BATCH, "[ncsn-sample]")
   # One sampler step (num_scales 1: NCSN_STEP_STEPS Langevin steps and the
   # "none" predictor) at the eval batch, after one forward at that batch
   # alone.
@@ -2438,17 +1500,14 @@ def phase_ncsn(torch, attn, card_line: str) -> None:
   torch.cuda.empty_cache()
   base = torch.cuda.memory_allocated()
   torch.cuda.reset_peak_memory_stats()
-  start = time.perf_counter()
   with network_evals(torch) as evals:
     samples, nfe = sampler(torch.Generator(device="cuda").manual_seed(9))
   torch.cuda.synchronize()
-  seconds = time.perf_counter() - start
   step_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
   say(f"[ncsn-step] one sampler step at eval batch {batch}: {evals[0]} "
-      f"evaluations in {seconds:.2f} s ({seconds * 1e3 / evals[0]:.2f} "
-      f"ms each); peak max_memory_allocated above the model {step_gib:.3f} "
-      f"GiB, one forward alone {forward_gib:.3f} GiB; the stacked noise of "
-      f"{n_steps} steps would be {stacked_gib:.3f} GiB ({card_line})")
+      f"evaluations; peak max_memory_allocated above the model "
+      f"{step_gib:.3f} GiB, one forward alone {forward_gib:.3f} GiB; the "
+      f"stacked noise of {n_steps} steps would be {stacked_gib:.3f} GiB")
   check(bool(torch.isfinite(samples).all()) and evals[0] == n_steps,
         f"[ncsn-step] {evals[0]} evaluations, finite "
         f"{bool(torch.isfinite(samples).all())}")
@@ -2456,13 +1515,13 @@ def phase_ncsn(torch, attn, card_line: str) -> None:
         f"[ncsn-step] peak {step_gib:.3f} GiB: a stacked noise tensor?")
 
 
-def phase_ncsnv2(torch, attn, card_line: str) -> None:
+def phase_ncsnv2(torch) -> None:
   """[ncsnv2]: ve/ncsnv2/cifar10.py (ncsnv2_64) at full width: the forward
   on the card against the CPU (TF32 off), ``main --mode train`` for 5
   steps and ``main --mode sample`` with annealed Langevin dynamics at 20
   scales; ve/ncsnv2/bedroom.py (ncsnv2_128, 128²): the train step at its
-  batch of 128 or the largest of BEDROOM_BATCHES that fits, ms/step and
-  peak memory; an ncsnv2_256 forward at 256² and batch 4 (the bedroom file
+  batch of 128 or the largest of BEDROOM_BATCHES that fits, and its peak
+  memory; an ncsnv2_256 forward at 256² and batch 4 (the bedroom file
   with model.name=ncsnv2_256 and data.image_size=256) against the CPU.
   No attention launch anywhere."""
   import gc
@@ -2485,30 +1544,27 @@ def phase_ncsnv2(torch, attn, card_line: str) -> None:
            "training.eval_freq": 5, "training.snapshot_freq": 5,
            "training.snapshot_freq_for_preemption": 5}
   with tempfile.TemporaryDirectory() as workdir:
-    phase_train_run(torch, attn, NCSNV2_CONFIG, workdir, flags, 0,
-                    "[ncsnv2-train]", card_line=card_line)
+    phase_train_run(torch, NCSNV2_CONFIG, workdir, flags, 0,
+                    "[ncsnv2-train]")
     phase_main_sample(
-        torch, attn, NCSNV2_CONFIG, workdir,
-        [f"model.num_scales={NCSNV2_SCALES}"], 0,
-        NCSNV2_SCALES * config.sampling.n_steps_each,
-        NCSN_SAMPLE_BATCH, "[ncsnv2-sample]", card_line)
+        torch, NCSNV2_CONFIG, workdir, [f"model.num_scales={NCSNV2_SCALES}"],
+        0, NCSNV2_SCALES * config.sampling.n_steps_each, NCSN_SAMPLE_BATCH,
+        "[ncsnv2-sample]")
   bedroom = configs.load_config(BEDROOM_CONFIG)
   for b in BEDROOM_BATCHES:
     try:
-      rec = train_step_peak(torch, attn, bedroom, b)
+      peak = train_step_peak(torch, bedroom, b, 0, "[ncsnv2-bedroom]")
     except torch.cuda.OutOfMemoryError:
-      rec = None
+      peak = None
     gc.collect()
     torch.cuda.empty_cache()
-    if rec is None:
+    if peak is None:
       say(f"[ncsnv2-bedroom] train step at batch {b}: out of device memory")
       continue
     say(f"[ncsnv2-bedroom] {BEDROOM_CONFIG[len(ROOT) + 1:]} (ncsnv2_128, "
         f"128²) train step at batch {b} (the config's: "
-        f"{bedroom.training.batch_size}): {rec['ms']:.1f} ms/step, peak "
-        f"max_memory_allocated {rec['peak_gib']:.2f} GiB ({card_line})")
-    check(rec["launches"] == (0, 0),
-          f"[ncsnv2-bedroom] attention launches {rec['launches']}")
+        f"{bedroom.training.batch_size}): peak max_memory_allocated "
+        f"{peak:.2f} GiB")
     break
   else:
     check(False, f"[ncsnv2-bedroom] no batch of {BEDROOM_BATCHES} fits")
@@ -2527,16 +1583,15 @@ def phase_ncsnv2(torch, attn, card_line: str) -> None:
     _tf32_restore(torch, defaults)
 
 
-def phase_bf16_church(torch, attn, card_line: str) -> tuple:
+def phase_bf16_church(torch) -> None:
   """[bf16-church]: tpu/church_256_ncsnpp_tpu.py (model.dtype bfloat16,
   remat, batch 32) at full width: ``main --mode train`` at batch 8 for 2
-  steps and a resume to 4 (4 forward launches and 4 backward calls per step), then
-  ``main --mode sample`` (PC, num_scales 10, batch 4) on its checkpoint; the
-  train step's ms and peak memory at batch 32, beside the fp32 file's at
-  the same batch; and at unit gain, the bf16 forward's relative L2
-  distance from the fp32 forward of the same weights, with its 4
-  launches. Returns the forward and backward launches of the counted
-  runs."""
+  steps and a resume to 4 (4 forward launches and 4 backward calls per
+  step), then ``main --mode sample`` (PC, num_scales 10, batch 4) on its
+  checkpoint; the train step's peak memory and launches at batch 32,
+  beside the fp32 file's at the same batch; and at unit gain, the bf16
+  forward's relative L2 distance from the fp32 forward of the same
+  weights, with its 4 launches."""
   from score_sde_pytorch_tpu_torch import configs
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
@@ -2544,26 +1599,21 @@ def phase_bf16_church(torch, attn, card_line: str) -> tuple:
   with tempfile.TemporaryDirectory() as workdir:
     flags = dict(short_train_flags(),
                  **{"training.batch_size": BF16_TRAIN_BATCH})
-    train = phase_train_run(torch, attn, BF16_CHURCH_CONFIG, workdir,
-                            flags, BF16_CHURCH_ATTN,
-                            "[bf16-church-train]", resume_to=2 * SHORT_STEPS,
-                            card_line=card_line)
-    sample = phase_main_sample(
-        torch, attn, BF16_CHURCH_CONFIG, workdir,
+    phase_train_run(torch, BF16_CHURCH_CONFIG, workdir, flags,
+                    BF16_CHURCH_ATTN, "[bf16-church-train]",
+                    resume_to=2 * SHORT_STEPS)
+    phase_main_sample(
+        torch, BF16_CHURCH_CONFIG, workdir,
         [f"model.num_scales={HIRES_SCALES}"], BF16_CHURCH_ATTN,
         (config.sampling.n_steps_each + 1) * HIRES_SCALES, HIRES_BATCH,
-        "[bf16-church-sample]", card_line)
+        "[bf16-church-sample]")
   batch = config.training.batch_size
   for cfg, what in ((config, "bf16"), (configs.load_config(
       BF16_CHURCH_CONFIG, ["model.dtype=float32"]), "fp32")):
-    rec = train_step_peak(torch, attn, cfg, batch)
+    peak = train_step_peak(torch, cfg, batch, BF16_CHURCH_ATTN,
+                           f"[bf16-church] {what}")
     say(f"[bf16-church] train step with remat at batch {batch}, {what}: "
-        f"{rec['ms']:.1f} ms/step, peak max_memory_allocated "
-        f"{rec['peak_gib']:.2f} GiB; {rec['launches'][0]:g} forward "
-        f"launches and {rec['launches'][1]:g} backward calls per step "
-        f"({card_line})")
-    check(rec["launches"] == (BF16_CHURCH_ATTN, BF16_CHURCH_ATTN),
-          f"[bf16-church] launches per step {rec['launches']}")
+        f"peak max_memory_allocated {peak:.2f} GiB")
   models = []
   for cfg in (config, configs.load_config(BF16_CHURCH_CONFIG,
                                           ["model.dtype=float32"])):
@@ -2577,9 +1627,9 @@ def phase_bf16_church(torch, attn, card_line: str) -> tuple:
   labels = _labels(config, torch.rand(HIRES_BATCH, device="cuda",
                                       generator=gen))
   with torch.no_grad():
-    attn.flash_attention_launches = 0
+    _reset()
     out16 = models[0](x, labels)
-    launches = attn.flash_attention_launches
+    launches = _counts()["forward"]
     out32 = models[1](x, labels)
   dist = ((out16 - out32).norm() / out32.norm()).item()
   say(f"[bf16-church] unit-gain forward at batch {HIRES_BATCH}: bf16 vs "
@@ -2590,33 +1640,26 @@ def phase_bf16_church(torch, attn, card_line: str) -> tuple:
   check(1e-4 < dist <= 5e-2, f"[bf16-church] bf16 vs fp32 distance {dist}")
   check(launches == BF16_CHURCH_ATTN,
         f"[bf16-church] {launches} launches in one forward")
-  return train[0] + sample, train[1]
 
 
-def phase_bf16_1024(torch, attn, card_line: str) -> tuple:
+def phase_bf16_1024(torch) -> None:
   """[bf16-1024]: tpu/celebahq_1024_ncsnpp_tpu.py (bf16, remat) at full
   width, the train step at its batch of 8, driven directly as
-  [hires-1024]'s is: ms/step and peak memory, 3 forward launches and 3
-  backward calls per step. Returns the launches of the timed steps."""
+  [hires-1024]'s is: peak memory, 3 forward launches and 3 backward calls
+  per step."""
   from score_sde_pytorch_tpu_torch import configs
   config = configs.load_config(BF16_1024_CONFIG)
-  steps = 2
-  rec = train_step_peak(torch, attn, config, config.training.batch_size,
-                        steps=steps)
+  peak = train_step_peak(torch, config, config.training.batch_size,
+                         BF16_1024_ATTN, "[bf16-1024]")
   say(f"[bf16-1024] {BF16_1024_CONFIG[len(ROOT) + 1:]} train step with "
-      f"remat at batch {config.training.batch_size}, bf16: {rec['ms']:.1f} "
-      f"ms/step, peak max_memory_allocated {rec['peak_gib']:.2f} GiB; "
-      f"{rec['launches'][0]:g} forward launches and {rec['launches'][1]:g} "
-      f"backward calls per step ({card_line})")
-  check(rec["launches"] == (BF16_1024_ATTN, BF16_1024_ATTN),
-        f"[bf16-1024] launches per step {rec['launches']}")
-  return (BF16_1024_ATTN * steps, BF16_1024_ATTN * steps)
+      f"remat at batch {config.training.batch_size}, bf16: peak "
+      f"max_memory_allocated {peak:.2f} GiB")
 
 
 # --- the peripherals: URI workdirs, trace, demo, debug, stats, H100 leaves --
 
 
-def phase_uri(torch, attn, card_line: str) -> tuple:
+def phase_uri(torch) -> None:
   """[uri]: ``myfs://`` registered onto a temporary directory
   (``utils.io.LocalMirrorHandler``), then the flagship's ``main --mode
   train`` at full width and batch URI_BATCH on ``myfs://bucket/wd``: 2
@@ -2624,8 +1667,7 @@ def phase_uri(torch, attn, card_line: str) -> tuple:
   4 (traced too), ``--mode eval`` (the loss) and ``--mode sample`` (one
   round). Every artifact must be under the mirror root and none under a
   local ``myfs:``; the traces must name the attention kernels; an
-  unregistered ``gs://`` workdir must raise before any step. Returns the
-  forward and backward launches."""
+  unregistered ``gs://`` workdir must raise before any step."""
   from score_sde_pytorch_tpu_torch import main
   from score_sde_pytorch_tpu_torch.utils import io
   wd = "myfs://bucket/wd"
@@ -2648,7 +1690,6 @@ def phase_uri(torch, attn, card_line: str) -> tuple:
                 "--config.eval.enable_sampling=False"], 0),
       ("sample", ["--mode", "sample"], 0),
   ]
-  fwd = bwd = 0
   cwd = os.getcwd()
   with tempfile.TemporaryDirectory() as base:
     root, local_cwd = os.path.join(base, "mirror"), os.path.join(base, "cwd")
@@ -2656,7 +1697,7 @@ def phase_uri(torch, attn, card_line: str) -> tuple:
     os.chdir(local_cwd)
     io.register_scheme("myfs", io.LocalMirrorHandler("myfs", root))
     try:
-      _reset(attn)
+      _reset()
       try:
         main.main(["--config", FLAGSHIP, "--workdir", "gs://bucket/wd",
                    "--mode", "train"])
@@ -2664,29 +1705,25 @@ def phase_uri(torch, attn, card_line: str) -> tuple:
       except ValueError as e:
         raised = str(e)
       check("register_scheme" in raised
-            and _counts(attn) == {"forward": 0, "backward": 0}
+            and _counts() == {"forward": 0, "backward": 0}
             and not os.listdir(local_cwd),
             f"[uri] an unregistered gs:// workdir: {raised!r}, launches "
-            f"{_counts(attn)}, {os.listdir(local_cwd)} in the working "
+            f"{_counts()}, {os.listdir(local_cwd)} in the working "
             "directory")
       say(f"[uri] gs:// without a handler raised before any step: {raised}")
       for name, args, steps in runs:
-        _reset(attn)
+        _reset()
         captured = _graph("capture")
-        start = time.perf_counter()
         with network_evals(torch) as evals:
           main.main(common + args)
-        launches = _counts(attn)
+        launches = _counts()
         captures = _graph("capture") - captured
-        say(f"[uri] {name} on {wd}: {time.perf_counter() - start:.1f} s "
-            f"wall; {evals[0]} network evaluations, {captures} resblock "
-            f"graph captures, launches {launches}")
+        say(f"[uri] {name} on {wd}: {evals[0]} network evaluations, "
+            f"{captures} resblock graph captures, launches {launches}")
         check(evals[0] > 0 and launches == {
             "forward": ATTN_PER_FORWARD * (evals[0] + captures),
             "backward": ATTN_PER_FORWARD * steps},
               f"[uri] {name}: {evals[0]} evaluations, launches {launches}")
-        fwd += launches["forward"]
-        bwd += launches["backward"]
     finally:
       io.unregister_scheme("myfs")
       os.chdir(cwd)
@@ -2714,29 +1751,26 @@ def phase_uri(torch, attn, card_line: str) -> tuple:
           f"kernels {names}")
       check(names == ["bwd_dkdv", "bwd_dq", "fwd"],
             f"[uri] {trace} names the kernels {names}")
-    say(f"[uri] under the mirror root: {found} ({card_line})")
-  return fwd, bwd
+    say(f"[uri] under the mirror root: {found}")
 
 
-def phase_demo(torch, attn, card_line: str) -> tuple:
+def phase_demo(torch) -> None:
   """[demo]: ``python -m score_sde_pytorch_tpu_torch.demo`` in process at
   the flagship's full width (the demo's shrink overridden back), random
   weights, num_scales cut to DEMO_SCALES: its six sections, five PNGs,
   finite bits/dim, 6 attention launches per counted evaluation and 6
-  backward calls per drift evaluation. Returns the launches."""
+  backward calls per drift evaluation."""
   import io as stdio
   import numpy as np
   from score_sde_pytorch_tpu_torch import demo
   with tempfile.TemporaryDirectory() as out:
-    _reset(attn)
+    _reset()
     printed = stdio.StringIO()
-    start = time.perf_counter()
     with network_evals(torch) as evals, contextlib.redirect_stdout(printed):
       result = demo.main(["--out", out, "--config.model.nf=128",
                           "--config.model.num_res_blocks=4",
                           f"--config.model.num_scales={DEMO_SCALES}"])
-    seconds = time.perf_counter() - start
-    launches = _counts(attn)
+    launches = _counts()
     pngs = sorted(os.listdir(out))
   lines = printed.getvalue().splitlines()
   for line in lines:
@@ -2753,23 +1787,21 @@ def phase_demo(torch, attn, card_line: str) -> tuple:
         f"[demo] {evals[0]} evaluations ({drift} drift), launches "
         f"{launches}")
   say(f"[demo] full-width flagship, random weights, num_scales "
-      f"{DEMO_SCALES}: {seconds:.1f} s wall; NFE PC {result['pc_nfe']}, "
-      f"ODE {result['ode_nfe']}, dpmpp {result['dpmpp_nfe']}, bits/dim "
-      f"{drift}; {evals[0]} network evaluations, launches {launches} "
-      f"({card_line})")
-  return launches["forward"], launches["backward"]
+      f"{DEMO_SCALES}: NFE PC {result['pc_nfe']}, ODE {result['ode_nfe']}, "
+      f"dpmpp {result['dpmpp_nfe']}, bits/dim {drift}; {evals[0]} network "
+      f"evaluations, launches {launches}")
 
 
-def phase_debug(torch, attn, workdir: str, card_line: str) -> int:
+def phase_debug(torch, workdir: str) -> None:
   """[debug]: ``python -m score_sde_pytorch_tpu_torch.debug`` in process on
   [train]'s checkpoint_2 with PYTHONBREAKPOINT=0: the step and finite
-  score statistics, one network evaluation. Returns the launches."""
+  score statistics, one network evaluation."""
   import io as stdio
   from score_sde_pytorch_tpu_torch import debug
   previous = os.environ.get("PYTHONBREAKPOINT")
   os.environ["PYTHONBREAKPOINT"] = "0"
   printed = stdio.StringIO()
-  _reset(attn)
+  _reset()
   try:
     with network_evals(torch) as evals, contextlib.redirect_stdout(printed):
       stats = debug.main(
@@ -2781,17 +1813,16 @@ def phase_debug(torch, attn, workdir: str, card_line: str) -> int:
     else:
       os.environ["PYTHONBREAKPOINT"] = previous
   lines = printed.getvalue().splitlines()
-  say(f"[debug] {lines} ({card_line})")
+  say(f"[debug] {lines}")
   check(lines[0] == "loaded state at step 20" and stats["step"] == 20
         and math.isfinite(stats["mean"]) and math.isfinite(stats["std"]),
         f"[debug] printed {lines}")
-  check(evals[0] == 1 and _counts(attn) == {"forward": ATTN_PER_FORWARD,
+  check(evals[0] == 1 and _counts() == {"forward": ATTN_PER_FORWARD,
                                             "backward": 0},
-        f"[debug] {evals[0]} evaluations, launches {_counts(attn)}")
-  return ATTN_PER_FORWARD
+        f"[debug] {evals[0]} evaluations, launches {_counts()}")
 
 
-def phase_stats(torch, base: str, card_line: str) -> None:
+def phase_stats(base: str) -> None:
   """[stats]: ``python -m score_sde_pytorch_tpu_torch.tools.
   compute_dataset_stats`` in process on [eval]'s ``.npz`` test split with
   its seeded random Inception weights, on the card, into ``assets/stats/``
@@ -2809,11 +1840,9 @@ def phase_stats(torch, base: str, card_line: str) -> None:
   os.environ["INCEPTION_WEIGHTS_NPZ"] = os.path.join(base, "inception.npz")
   os.chdir(base)
   try:
-    start = time.perf_counter()
     path = compute_dataset_stats.main(
         ["--config", FLAGSHIP, "--split", "test", "--device", "cuda"]
         + [f"--config.{o}" for o in overrides])
-    seconds = time.perf_counter() - start
     stats = evaluation.load_dataset_stats(config)
     evaluation._INCEPTION_CACHE.clear()  # a fresh network for the check
     pool = evaluation.run_inception(images, config, "cuda")["pool_3"]
@@ -2823,78 +1852,33 @@ def phase_stats(torch, base: str, card_line: str) -> None:
     evaluation._INCEPTION_CACHE.clear()
   mu_err = float(np.abs(stats["mu"] - pool.mean(0)).max())
   sigma_err = float(np.abs(stats["sigma"] - np.cov(pool, rowvar=False)).max())
-  say(f"[stats] {path} from {images.shape[0]} images on the card: "
-      f"{seconds:.1f} s; keys {sorted(stats)}; max |mu - run_inception's| "
-      f"{mu_err:.3e}, max |sigma - np.cov| {sigma_err:.3e} (tolerance "
-      f"{STATS_TOL:g}) ({card_line})")
+  say(f"[stats] {path} from {images.shape[0]} images on the card: keys "
+      f"{sorted(stats)}; max |mu - run_inception's| {mu_err:.3e}, max "
+      f"|sigma - np.cov| {sigma_err:.3e} (tolerance {STATS_TOL:g})")
   check(sorted(stats) == ["mu", "pool_3", "sigma"]
         and stats["pool_3"].shape == (images.shape[0], 2048)
         and mu_err <= STATS_TOL and sigma_err <= STATS_TOL,
         f"[stats] mu {mu_err:.3e}, sigma {sigma_err:.3e}")
 
 
-def phase_h100_leaves(torch, attn, card_line: str) -> tuple:
+def phase_h100_leaves(torch) -> None:
   """[h100-leaves]: each ``configs/h100/`` leaf's train step at its batch,
-  full width, through the kernels, timed by the grid tool that chose it
-  (``tools/train_step_grid.measure``: one warm-up, then LEAF_STEPS timed
-  steps): ms/step, images/s and peak memory against the card's total (at
-  most 90%, the leaves' rule); then one profiled step: the device's busy
-  time, idle share and kernel families. Returns the launches of the
-  warm-up, timed and profiled steps."""
-  from torch.profiler import ProfilerActivity, profile
+  full width, through the kernels: two steps, their launches, and the
+  peak memory against the card's total (at most 90%, the leaves' rule)."""
   from score_sde_pytorch_tpu_torch import configs
-  from score_sde_pytorch_tpu_torch.tools import train_step_grid
   total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
-  fwd = bwd = 0
   for path, per in H100_LEAVES:
     config = configs.load_config(path)
     batch = config.training.batch_size
     tag = f"[h100-leaves] {os.path.basename(path)}"
-    profiled = {}
-
-    def profile_one_step(run_steps):
-      with profile(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        run_steps(1)
-        profiled["wall_ms"] = (time.perf_counter() - start) * 1e3
-      profiled["prof"] = prof
-
-    _reset(attn)
-    before = {k: _graph(k) for k in ("capture", "capture_refused",
-                                     "capture_failed")}
-    got = train_step_grid.measure(config, batch, LEAF_STEPS,
-                                  after=profile_one_step)
-    check(not got.get("oom"), f"{tag} out of memory at batch {batch}")
-    launches = _counts(attn)
-    captures, refused, failed = (_graph(k) - n for k, n in before.items())
-    ms, peak = got["ms"], got["peak_gib"]
+    before = {k: _graph(k) for k in ("capture_refused", "capture_failed")}
+    peak = train_step_peak(torch, config, batch, per, tag)
+    refused, failed = (_graph(k) - n for k, n in before.items())
     say(f"{tag} (dtype {config.model.dtype}, remat {config.model.remat}) at "
-        f"batch {batch}: {ms:.1f} ms/step = {got['images_per_s']:.2f} "
-        f"images/s over {LEAF_STEPS} steps (SM clock {got['sm_mhz']} MHz, "
-        f"{got['watts']} W); peak max_memory_allocated {peak:.2f} of "
-        f"{total:.2f} GiB ({peak / total:.3f}); launches {launches} in "
-        f"{LEAF_STEPS + 2} steps and {captures} resblock graph captures "
-        f"({refused} refused, {failed} failed) ({card_line})")
-    want = per * (LEAF_STEPS + 2)
-    check(launches == {"forward": want + per * captures, "backward": want},
-          f"{tag} launches {launches}, want {want} (and {per} x "
-          f"{captures} captures) forward, {want} backward")
+        f"batch {batch}: peak max_memory_allocated {peak:.2f} of "
+        f"{total:.2f} GiB ({peak / total:.3f}); resblock graph captures "
+        f"refused {refused}, failed {failed}")
     check(peak <= 0.9 * total, f"{tag} peak {peak:.2f} GiB of {total:.2f}")
-    by_kernel = _device_us_by_kernel(profiled.pop("prof"))
-    busy_ms = sum(by_kernel.values()) / 1e3
-    if busy_ms > 0:
-      say(f"{tag} profiled step: device busy {busy_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / ms:.3f} of the unprofiled {ms:.1f} ms/step "
-          f"({1 - busy_ms / profiled['wall_ms']:.3f} of the profiled step's "
-          f"{profiled['wall_ms']:.1f} ms)")
-      _report_families(tag, by_kernel, 1, "step")
-    else:
-      say(f"{tag} profiler: no device time recorded; idle share not "
-          "measured")
-    fwd += launches["forward"]
-    bwd += want
-  return fwd, bwd
 
 
 # --- data: seeded files in the layouts of the real sets ----------------------
@@ -2996,114 +1980,75 @@ def short_train_flags(eval_freq: int = SHORT_STEPS, **data) -> dict:
               **{f"data.{k}": v for k, v in data.items()})
 
 
-def phase_data_church(torch, attn, data_root: str, card_line: str) -> tuple:
+def phase_data_church(torch, data_root: str) -> None:
   """[data-church]: ve/church_ncsnpp_continuous.py (LSUN 256², remat) at
   its batch of 64 on a folder of JPEGs: ``main --mode train`` and a resume
-  across an epoch boundary; then the loader alone (decode + resize
-  images/s against the step's demand) and ``skip`` over 10⁵ batches.
-  Returns the forward and backward launches."""
+  across an epoch boundary; then the loader alone (decode + resize, and
+  batches through the iterator) and ``skip`` over 10⁵ batches."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import configs, datasets
-  start = time.perf_counter()
   data = write_image_folder(os.path.join(data_root, "church"), CHURCH_SPLITS,
                             CHURCH_JPEG_WH, "JPEG", seed=11)
-  say(f"[data-church] {CHURCH_SPLITS} JPEGs of {CHURCH_JPEG_WH[0]}x"
-      f"{CHURCH_JPEG_WH[1]} written in {time.perf_counter() - start:.2f} s")
   with tempfile.TemporaryDirectory() as workdir:
-    launches = phase_train_run(
-        torch, attn, CHURCH_CONFIG, workdir, short_train_flags(data_dir=data),
-        HIRES_ATTN_PER_FORWARD, "[data-church]", resume_to=2 * SHORT_STEPS,
-        card_line=card_line)
+    phase_train_run(
+        torch, CHURCH_CONFIG, workdir, short_train_flags(data_dir=data),
+        HIRES_ATTN_PER_FORWARD, "[data-church]", resume_to=2 * SHORT_STEPS)
     _resume_skipped(workdir, "[data-church]", SHORT_STEPS, 1)
   config = configs.load_config(CHURCH_CONFIG, [f"data.data_dir={data}"])
   train_it, _ = datasets.get_dataset(config)
   source = train_it.source
-  handles = list(source.handles())[:STEP_DEMAND[0]]
-  start = time.perf_counter()
-  images = [source.decode(h) for h in handles]
-  decode_s = time.perf_counter() - start
+  images = [source.decode(h) for h in list(source.handles())[:64]]
   check(all(i.shape == (256, 256, 3) for i in images), "church image shape")
-  start = time.perf_counter()
   batches = [next(train_it) for _ in range(3)]
-  batch_s = time.perf_counter() - start
   check(all(b.shape == (64, 256, 256, 3) and np.isfinite(b).all()
             for b in batches), "church batches")
-  demand = STEP_DEMAND[0] / STEP_DEMAND[1]
-  say(f"[data-church] loader alone: decode + resize {len(images) / decode_s:.1f}"
-      f" images/s on one thread; 3 batches of 64 through the iterator "
-      f"(prefetch thread, float32, flips) {3 * 64 / batch_s:.1f} images/s; "
-      f"the step's demand {demand:.1f} images/s ({STEP_DEMAND[0]} per "
-      f"{STEP_DEMAND[1]} s step) (host CPU; {card_line})")
   fresh, _ = datasets.get_dataset(config)
-  start = time.perf_counter()
   fresh.skip(SKIP_BATCHES)
-  skip_s = time.perf_counter() - start
   decoded = fresh.decoded
   check(decoded == 0, f"skip decoded {decoded} images")
   after = next(fresh)
   check(after.shape == (64, 256, 256, 3) and np.isfinite(after).all(),
         "the batch after skip")
-  say(f"[data-church] skip({SKIP_BATCHES}) on the train stream: "
-      f"{skip_s:.3f} s, {decoded} images decoded ({card_line})")
-  return launches
+  say(f"[data-church] {CHURCH_SPLITS} JPEGs of {CHURCH_JPEG_WH[0]}x"
+      f"{CHURCH_JPEG_WH[1]}: {len(images)} decoded alone and 3 batches of 64 "
+      f"through the iterator; skip({SKIP_BATCHES}) on the train stream "
+      f"decoded {decoded} images")
 
 
-def phase_data_ffhq(torch, attn, data_root: str, card_line: str) -> tuple:
+def phase_data_ffhq(torch, data_root: str) -> None:
   """[data-ffhq]: ve/ffhq_ncsnpp_continuous.py (1024², batch 8, remat) on
   TFRecords of 3x1024x1024 in 2 shards: ``main --mode train`` and a
-  resume; the reader's MB/s with the CRC on, the CRC's GB/s. Returns the
-  forward and backward launches."""
+  resume, and the batches of an epoch."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import configs, datasets
-  from score_sde_pytorch_tpu_torch.native.crc32c import crc32c
   root = os.path.join(data_root, "ffhq")
   os.makedirs(root)
   rng = np.random.default_rng(13)
-  start = time.perf_counter()
   half = FFHQ_RECORDS // 2
   for shard in range(2):
     write_tfrecords(os.path.join(root, f"ffhq-r10-{shard:02d}.tfrecords"),
                     (rng.integers(0, 256, (3, 1024, 1024), dtype=np.uint8)
                      for _ in range(half)))
-  say(f"[data-ffhq] {FFHQ_RECORDS} records of 3x1024x1024 in 2 shards "
-      f"({sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e6:.1f}"
-      f" MB) written in {time.perf_counter() - start:.2f} s")
+  say(f"[data-ffhq] {FFHQ_RECORDS} records of 3x1024x1024 in 2 shards")
   with tempfile.TemporaryDirectory() as workdir:
-    launches = phase_train_run(
-        torch, attn, FFHQ_CONFIG, workdir,
-        short_train_flags(tfrecords_path=root), HQ1024_ATTN_PER_FORWARD,
-        "[data-ffhq]", resume_to=2 * SHORT_STEPS, card_line=card_line)
+    phase_train_run(
+        torch, FFHQ_CONFIG, workdir, short_train_flags(tfrecords_path=root),
+        HQ1024_ATTN_PER_FORWARD, "[data-ffhq]", resume_to=2 * SHORT_STEPS)
     _resume_skipped(workdir, "[data-ffhq]", SHORT_STEPS, 1)
   config = configs.load_config(FFHQ_CONFIG, [f"data.tfrecords_path={root}"])
   train_it, _ = datasets.get_dataset(config)
   check(train_it.batches_per_epoch == FFHQ_RECORDS // 8,
         f"[data-ffhq] {train_it.batches_per_epoch} batches per epoch")
-  source = train_it.source
-  handles = list(source.handles())
-  start = time.perf_counter()
-  nbytes = sum(source.decode(h).nbytes for h in handles)
-  read_s = time.perf_counter() - start
-  buf = rng.integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
-  crc32c(buf)
-  start = time.perf_counter()
-  for _ in range(4):
-    crc32c(buf)
-  crc_s = (time.perf_counter() - start) / 4
-  say(f"[data-ffhq] reader: {len(handles)} records, {nbytes / read_s / 1e6:.1f}"
-      f" MB/s (read, both CRCs, Example parse, CHW->HWC) on one thread; "
-      f"CRC-32C {len(buf) / crc_s / 1e9:.2f} GB/s (host CPU; {card_line})")
-  return launches
 
 
-def phase_data_celeba(torch, attn, data_root: str, card_line: str) -> tuple:
+def phase_data_celeba(torch, data_root: str) -> None:
   """[data-celeba]: ve/celeba_ncsnpp.py (CELEBA 64², SMLD) on PNGs at
   aligned CelebA's 178x218: ``main --mode train`` at batch 32 (its
   config: 128) and
   a resume (no eval loss in training: the eval split is read only by the
   eval), then ``main --mode eval`` (the loss over the streamed test split,
   bits/dim over the streamed train split: one integration at batch 32,
-  where the test split would be integrated 5 times). Returns the forward
-  and backward launches."""
+  where the test split would be integrated 5 times)."""
   import numpy as np
   from score_sde_pytorch_tpu_torch import main
   data = write_image_folder(os.path.join(data_root, "celeba"), CELEBA_SPLITS,
@@ -3111,23 +2056,19 @@ def phase_data_celeba(torch, attn, data_root: str, card_line: str) -> tuple:
   flags = dict(short_train_flags(eval_freq=100 * SHORT_STEPS, data_dir=data),
                **{"training.batch_size": CELEBA_TRAIN_BATCH})
   with tempfile.TemporaryDirectory() as workdir:
-    train = phase_train_run(
-        torch, attn, CELEBA_CONFIG, workdir, flags, CELEBA_ATTN_PER_FORWARD,
-        "[data-celeba]", resume_to=2 * SHORT_STEPS, card_line=card_line)
+    phase_train_run(torch, CELEBA_CONFIG, workdir, flags,
+                    CELEBA_ATTN_PER_FORWARD, "[data-celeba]",
+                    resume_to=2 * SHORT_STEPS)
     _resume_skipped(workdir, "[data-celeba]", SHORT_STEPS, 0)
     overrides = {"data.data_dir": data, "eval.begin_ckpt": 2,
                  "eval.end_ckpt": 2, "eval.batch_size": CELEBA_EVAL_BATCH,
                  "eval.enable_loss": True, "eval.enable_bpd": True,
                  "eval.bpd_dataset": "train", "eval.enable_sampling": False}
-    attn.flash_attention_launches = 0
-    attn.flash_attention_backward_launches = 0
-    start = time.perf_counter()
+    _reset()
     (record,) = main.main(["--config", CELEBA_CONFIG, "--workdir", workdir,
                            "--mode", "eval", "--device", "cuda"]
                           + [f"--config.{k}={v}" for k, v in overrides.items()])
-    seconds = time.perf_counter() - start
-    launches = (attn.flash_attention_launches,
-                attn.flash_attention_backward_launches)
+    launches = tuple(_counts().values())
     with np.load(os.path.join(workdir, "eval", "train_ckpt_2_bpd.npz")) as z:
       bpd = z["bpd"]
     with np.load(os.path.join(workdir, "eval", "ckpt_2_loss.npz")) as z:
@@ -3140,33 +2081,20 @@ def phase_data_celeba(torch, attn, data_root: str, card_line: str) -> tuple:
   drift_evals = sum(record["bpd_nfe"])
   want = (CELEBA_ATTN_PER_FORWARD * (test_batches + drift_evals),
           CELEBA_ATTN_PER_FORWARD * drift_evals)
-  say(f"[data-celeba] main --mode eval on checkpoint_2: {seconds:.1f} s wall;"
-      f" eval loss {record['mean_loss']:.6g} over {test_batches} streamed "
-      f"batch(es) of {CELEBA_EVAL_BATCH}; bits/dim {record['bpd']:.6f} (the "
-      f"train split once), RK45 NFE {record['bpd_nfe']}; launches forward "
-      f"{launches[0]}, backward calls {launches[1]} ({card_line})")
+  say(f"[data-celeba] main --mode eval on checkpoint_2: eval loss "
+      f"{record['mean_loss']:.6g} over {test_batches} streamed batch(es) of "
+      f"{CELEBA_EVAL_BATCH}; bits/dim {record['bpd']:.6f} (the train split "
+      f"once), RK45 NFE {record['bpd_nfe']}; launches forward "
+      f"{launches[0]}, backward calls {launches[1]}")
   check(launches == want, f"[data-celeba] eval launches {launches}, "
         f"want {want}")
-  return train[0] + launches[0], train[1] + launches[1]
 
 
-def _images_per_s(it, batches: int) -> float:
-  for _ in range(2):
-    next(it)
-  start = time.perf_counter()
-  for _ in range(batches):
-    batch = next(it)
-  seconds = time.perf_counter() - start
-  check(batch.dtype.name == "float32" and 0 <= batch.min()
-        and batch.max() <= 1, "loader batch out of [0, 1]")
-  return batches * batch.shape[0] / seconds
-
-
-def phase_data_native(data_root: str, card_line: str) -> None:
+def phase_data_native(data_root: str) -> None:
   """[data-native]: the C++ loader (``loader_backend='native'``, two
-  threads) against the python pipeline in images/s: SVHN from a
-  ``.mat`` at 32² and batch 128, and the church folder ``in_memory`` at
-  256² and batch 64."""
+  threads) and the python pipeline: SVHN from a ``.mat`` at 32² and batch
+  128, and the church folder ``in_memory`` at 256² and batch 64, each
+  batch float32 in [0, 1]."""
   from score_sde_pytorch_tpu_torch import configs, datasets
   svhn = write_svhn(os.path.join(data_root, "svhn"), SVHN_IMAGES, seed=19)
   cases = [
@@ -3178,18 +2106,18 @@ def phase_data_native(data_root: str, card_line: str) -> None:
   for label, path, overrides in cases:
     config = configs.load_config(path, overrides)
     config.data.in_memory = True
-    rates = {}
-    for backend in ("python", "native", "native", "python"):
+    for backend in ("python", "native"):
       config.data.loader_backend = backend
       train_it, _ = datasets.get_dataset(config)
-      rates.setdefault(backend, []).append(
-          _images_per_s(train_it, NATIVE_BATCHES))
+      for _ in range(3):
+        batch = next(train_it)
+        check(batch.dtype.name == "float32" and 0 <= batch.min()
+              and batch.max() <= 1, f"[data-native] {label} {backend}: "
+              "loader batch out of [0, 1]")
       if backend == "native":
         train_it.close()
-    say(f"[data-native] {label}: images/s python "
-        f"{[round(r, 1) for r in rates['python']]}, native "
-        f"{[round(r, 1) for r in rates['native']]} (in turns; host CPU; "
-        f"{card_line})")
+    say(f"[data-native] {label}: python and native batches float32 in "
+        "[0, 1]")
 
 
 # ---------------------------------------------------------------------------
@@ -3200,31 +2128,30 @@ def phase_data_native(data_root: str, card_line: str) -> None:
 # runs use gloo with both ranks on cuda:0.
 
 
-def phase_learn(torch, attn, card_line: str) -> tuple:
+def phase_learn() -> None:
   """[learn]: the full-width flagship trained by the learning proof's own
   functions at batch 128 for LEARN_STEPS steps on N(0.5, 0.2²) pixels
   (PyTorch's default TF32 settings): the last 10 losses' mean under
   LEARN_LOSS_SHARE x the first step's, the EMA score's rel-L2 against the
   closed form at t = 0.5 and 0.9 under LEARN_REL_BOUND, and 6 forward
   launches and 6 backward calls per train step (as [train]) and 6
-  launches per score evaluation. Returns the launch counts."""
+  launches per score evaluation."""
   from score_sde_pytorch_tpu_torch.tools import learning_proof as lp
   config = lp.load_config(tiny=False, dtype="float32", seed=lp.SEED)
   proof = lp.Proof(config, "gaussian", "cuda", lp.FULL)
-  _reset(attn)
+  _reset()
   captured = _graph("capture")
   result = lp.train(proof, LEARN_STEPS // lp.N_INNER, probe_every=0)
-  trained = _counts(attn)
+  trained = _counts()
   recorded = ATTN_PER_FORWARD * (_graph("capture") - captured)
   rel = proof.score_rel_err(lp.PROBE_TIMES, seed=42)
-  counts = _counts(attn)
+  counts = _counts()
   share = result["loss_curve"][-1] / result["first_step_loss"]
   say(f"[learn] {LEARN_STEPS} steps at batch {proof.sizes['batch']}: "
-      f"{result['train_s']} s, {result['ms_per_step']} ms/step; first-step "
-      f"loss {result['first_step_loss']}, the last 10 steps' mean "
-      f"{result['loss_curve'][-1]} ({share:.3f} of it, bound "
+      f"first-step loss {result['first_step_loss']}, the last 10 steps' "
+      f"mean {result['loss_curve'][-1]} ({share:.3f} of it, bound "
       f"{LEARN_LOSS_SHARE}); EMA score rel-L2 {rel} (bounds "
-      f"{LEARN_REL_BOUND}); launches {counts} ({card_line})")
+      f"{LEARN_REL_BOUND}); launches {counts}")
   check(share < LEARN_LOSS_SHARE, f"[learn] loss share {share:.3f}")
   for t, bound in LEARN_REL_BOUND.items():
     check(rel[t] < bound, f"[learn] rel-L2 {rel[t]} at t = {t}")
@@ -3235,17 +2162,32 @@ def phase_learn(torch, attn, card_line: str) -> tuple:
   check(counts["forward"] - want - recorded == ATTN_PER_FORWARD * len(rel)
         and counts["backward"] == want,
         f"[learn] launches {counts} with {len(rel)} score evaluations")
-  return counts["forward"], counts["backward"]
 
 
-def _counts(attn) -> dict:
-  return {"forward": attn.flash_attention_launches,
-          "backward": attn.flash_attention_backward_launches}
+# The kernels' counters of ``utils/tracing.py``, one per kernel and path.
+KERNEL_COUNTERS = ("kernel.attention.fwd", "kernel.attention.bwd",
+                   "kernel.fused_act.fwd", "kernel.fused_act.bwd",
+                   "kernel.group_norm.onchip_fwd",
+                   "kernel.group_norm.onchip_bwd",
+                   "kernel.group_norm.split_fwd",
+                   "kernel.group_norm.split_bwd")
+# The attention counters at the last _reset(): forward launches and
+# backward calls.
+_ATTENTION = {"forward": "kernel.attention.fwd",
+              "backward": "kernel.attention.bwd"}
+_ZERO = dict.fromkeys(_ATTENTION, 0)
 
 
-def _reset(attn) -> None:
-  attn.flash_attention_launches = 0
-  attn.flash_attention_backward_launches = 0
+def _counts() -> dict:
+  """The attention launches since the last :func:`_reset`."""
+  from score_sde_pytorch_tpu_torch.utils import tracing
+  return {k: tracing.count_of(name) - _ZERO[k]
+          for k, name in _ATTENTION.items()}
+
+
+def _reset() -> None:
+  from score_sde_pytorch_tpu_torch.utils import tracing
+  _ZERO.update({k: tracing.count_of(name) for k, name in _ATTENTION.items()})
 
 
 def _graph(name: str) -> int:
@@ -3254,7 +2196,7 @@ def _graph(name: str) -> int:
   without gradient that records the blocks' inputs: one forward's
   attention launches more than the train steps ask for."""
   from score_sde_pytorch_tpu_torch.utils import tracing
-  return tracing.counters().get(f"graph.{name}", {}).get("count", 0)
+  return tracing.count_of(f"graph.{name}")
 
 
 def _flat_params(torch, model):
@@ -3271,10 +2213,9 @@ def _ranks_equal(torch, flat, group) -> bool:
   return bool(parallel.all_reduce_min(int(torch.equal(theirs, flat)), group))
 
 
-def _ddp_train_steps(torch, config, state, batches, group) -> tuple:
+def _ddp_train_steps(config, state, batches, group) -> list:
   """The DDP step (``state["forward"]`` wrapped, or one process with
-  ``group=None``) on the rank's rows of ``batches``: the losses and the
-  wall ms of the last step."""
+  ``group=None``) on the rank's rows of ``batches``: the losses."""
   from score_sde_pytorch_tpu_torch import losses, parallel
   from score_sde_pytorch_tpu_torch import sde as sde_lib
   tcfg = config.training
@@ -3283,23 +2224,15 @@ def _ddp_train_steps(torch, config, state, batches, group) -> tuple:
       optimize_fn=losses.optimization_manager(config),
       reduce_mean=tcfg.reduce_mean, continuous=tcfg.continuous,
       likelihood_weighting=tcfg.likelihood_weighting, group=group)
-  out, ms = [], 0.0
-  for batch in batches:
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    out.append(float(step_fn(state, parallel.local_rows(batch, group),
-                             state["generator"])))
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - start) * 1e3
-  return out, ms
+  return [float(step_fn(state, parallel.local_rows(batch, group),
+                        state["generator"])) for batch in batches]
 
 
-def _ddp_pair(torch, attn) -> dict:
+def _ddp_pair(torch) -> dict:
   """[ddp-2rank] on each of two gloo ranks sharing cuda:0 (TF32 off): (a)
   flagship train steps at the global batch, (b) PC sampling, (c) one RK45
   bits/dim batch, (d) the church NCSN++ with remat; rank 0 also runs (a)-(c)
   as one process for the comparison."""
-  import torch.distributed as dist
   from score_sde_pytorch_tpu_torch import (configs, likelihood, losses,
                                            parallel, sampling)
   from score_sde_pytorch_tpu_torch import sde as sde_lib
@@ -3307,8 +2240,7 @@ def _ddp_pair(torch, attn) -> dict:
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   group = parallel.default_group()
   rank = parallel.rank()
-  out = {"rank": rank,
-         "nvcc_s": attn.kernel_library().build_seconds}
+  out = {"rank": rank}
   _tf32_off(torch)
 
   # (a) Adam moves every weight by ~lr from the first step (warmup off);
@@ -3327,26 +2259,14 @@ def _ddp_pair(torch, attn) -> dict:
              for i in range(DDP_STEPS)]
   model, state = fresh()
   state["forward"] = parallel.wrap(model, "cuda:0")
-  _reset(attn)
-  out["train_losses"], out["train_ms"] = _ddp_train_steps(
-      torch, config, state, batches, group)
-  out["train_launches"] = _counts(attn)
+  _reset()
+  out["train_losses"] = _ddp_train_steps(config, state, batches, group)
+  out["train_launches"] = _counts()
   flat = _flat_params(torch, model)
-  out["train_params"] = flat.numel()
   out["train_ranks_equal"] = _ranks_equal(torch, flat, group)
-  grads = torch.randn(flat.numel(), device="cuda")
-  times = []
-  for _ in range(DDP_ALLREDUCE_REPEATS):
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    dist.all_reduce(grads, group=group)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - start) * 1e3)
-  out["allreduce_ms"] = times
   if rank == 0:
     model1, state1 = fresh()
-    out["one_losses"], out["one_ms"] = _ddp_train_steps(
-        torch, config, state1, batches, None)
+    out["one_losses"] = _ddp_train_steps(config, state1, batches, None)
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     diffs = {n: (a.detach() - b.detach()).abs().max().item()
              for n, a, b in zip(names, (p for p in model.parameters()
@@ -3358,7 +2278,7 @@ def _ddp_pair(torch, attn) -> dict:
     out["key_bias_err"] = max(v for n, v in diffs.items()
                               if n.endswith("NIN_1.b"))
     del model1, state1
-  del model, state, grads
+  del model, state
   parallel.barrier(group)
 
   # (b), (c): unit gain with the Fourier projection at scale 1, so the
@@ -3390,15 +2310,15 @@ def _ddp_pair(torch, attn) -> dict:
     return fn(model, parallel.local_rows(data, grp),
               torch.Generator(device="cuda").manual_seed(6))
 
-  _reset(attn)
+  _reset()
   with network_evals(torch) as evals:
     samples, out["pc_nfe"] = pc(group)
-  out["pc_evals"], out["pc_launches"] = evals[0], _counts(attn)
+  out["pc_evals"], out["pc_launches"] = evals[0], _counts()
   samples = parallel.gather_to_host(samples, group)
-  _reset(attn)
+  _reset()
   with network_evals(torch) as evals:
     rank_bpd, _, out["bpd_nfe"] = bpd(group)
-  out["bpd_evals"], out["bpd_launches"] = evals[0], _counts(attn)
+  out["bpd_evals"], out["bpd_launches"] = evals[0], _counts()
   rank_bpd = parallel.gather_to_host(rank_bpd, group)
   if rank == 0:
     want, out["pc_nfe_one"] = pc(None)
@@ -3422,10 +2342,9 @@ def _ddp_pair(torch, attn) -> dict:
   church = [torch.rand(DDP_CHURCH_BATCH, 3, size, size, device="cuda",
                        generator=cuda_gen.manual_seed(20 + i))
             for i in range(DDP_STEPS)]
-  _reset(attn)
-  out["church_losses"], out["church_ms"] = _ddp_train_steps(
-      torch, config, state, church, group)
-  out["church_launches"] = _counts(attn)
+  _reset()
+  out["church_losses"] = _ddp_train_steps(config, state, church, group)
+  out["church_launches"] = _counts()
   flat = _flat_params(torch, model)
   out["church_finite"] = bool(torch.isfinite(flat).all())
   out["church_ranks_equal"] = _ranks_equal(torch, flat, group)
@@ -3483,7 +2402,7 @@ def _space_run(torch, attn, config_path: str, overrides: list, batch: int,
   forward (the slabs gathered) and ``steps`` train steps and an eval-loss
   step (DDP over the world, the rank's slab of each global batch, t and z
   drawn globally), with their attention launches (and the kernels'
-  shapes), the space collectives' bytes, the step's ms and peak memory;
+  shapes), the space collectives' bytes and the peak memory;
   with ``regroup``, both ranks then take the same steps split over the
   batch instead; rank 0 then repeats it all as one process on the whole
   batch (each run's model freed first, so its peak is its own)."""
@@ -3527,14 +2446,14 @@ def _space_run(torch, attn, config_path: str, overrides: list, batch: int,
         **kwargs)
     eval_fn = losses.get_step_fn(sde, train=False, **kwargs)
     rec = {}
-    _reset(attn)
+    _reset()
     shapes.clear()
     with torch.no_grad(), spatial.sharded(space if split else None):
       out = model.eval()(cut(x), t)
       rec["forward"] = (spatial.gather_rows(out, space) if split
                         else out).cpu()
     torch.cuda.synchronize()
-    rec["forward_launches"], rec["forward_shapes"] = _counts(attn), list(
+    rec["forward_launches"], rec["forward_shapes"] = _counts(), list(
         shapes)
     model.train()
     if split:
@@ -3542,20 +2461,16 @@ def _space_run(torch, attn, config_path: str, overrides: list, batch: int,
     del out
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _reset(attn)
+    _reset()
     shapes.clear()
     spatial.reset_counts()
-    rec["losses"], rec["ms"], rec["grads"] = [], [], []
+    rec["losses"], rec["grads"] = [], []
     for b in batches:
-      torch.cuda.synchronize()
-      start = time.perf_counter()
       rec["losses"].append(float(step_fn(state, cut(b), state["generator"])))
-      torch.cuda.synchronize()
-      rec["ms"].append((time.perf_counter() - start) * 1e3)
       # The step's gradient (DDP's mean over the ranks under the split).
       rec["grads"].append([p.grad.detach().cpu() for p in trainable(model)])
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    rec["step_launches"], rec["step_shapes"] = _counts(attn), list(shapes)
+    rec["step_launches"], rec["step_shapes"] = _counts(), list(shapes)
     rec["comm"] = spatial.counts()
     rec["eval_loss"] = float(eval_fn(state, cut(batches[0]),
                                      state["generator"]))
@@ -3600,7 +2515,7 @@ def _space_run(torch, attn, config_path: str, overrides: list, batch: int,
                             / want["forward"].abs().max()).item()
       got.update(_space_compare(torch, got, want, other or want["grads"],
                                 config.optim.lr))
-      got["one"] = {k: want[k] for k in ("losses", "ms", "peak_gib",
+      got["one"] = {k: want[k] for k in ("losses", "peak_gib",
                                          "eval_loss", "forward_launches",
                                          "step_launches")}
     parallel.barrier(dist.group.WORLD)
@@ -3642,19 +2557,18 @@ def ddp_worker(job: str, out_dir: str, *args) -> int:
   if job in ("pair", "space"):
     parallel.init("gloo", "cuda:0")
     try:
-      result = (_ddp_pair if job == "pair" else _space_pair)(torch, attn)
+      result = (_ddp_pair(torch) if job == "pair"
+                else _space_pair(torch, attn))
     finally:
       parallel.shutdown()
   elif job == "cli":
     from score_sde_pytorch_tpu_torch import main as cli
-    start = time.perf_counter()
     with network_evals(torch) as evals:
       returned = cli.main(list(args))
-    result = {"evals": evals[0], "launches": _counts(attn),
-              "returned": returned, "main_s": time.perf_counter() - start}
+    result = {"evals": evals[0], "launches": _counts(),
+              "returned": returned}
   else:
     raise SystemExit(f"unknown --ddp-worker job {job!r}")
-  result["worker_s"] = time.perf_counter() - _STARTED
   with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
     json.dump(result, f, default=float)
   return 0
@@ -3668,12 +2582,12 @@ def _free_port() -> int:
 
 
 def launch_ranks(nproc: int, job: str, out_dir: str, tag: str, args=(),
-                 torchrun: bool = False) -> tuple:
+                 torchrun: bool = False) -> list:
   """This script's ``--ddp-worker job`` on ``nproc`` ranks: under
   ``torchrun --standalone``, or (quicker: no launcher process) as
   ``nproc`` processes given the environment torchrun would set. Returns
-  each rank's record and the run's wall seconds. A rank that fails or
-  outlasts DDP_TIMEOUT fails the smoke, and no rank outlives the call."""
+  each rank's record. A rank that fails or outlasts DDP_TIMEOUT fails the smoke, and no rank
+  outlives the call."""
   os.makedirs(out_dir, exist_ok=True)
   for name in os.listdir(out_dir):
     if name.startswith("rank"):
@@ -3689,7 +2603,6 @@ def launch_ranks(nproc: int, job: str, out_dir: str, tag: str, args=(),
                   WORLD_SIZE=str(nproc), LOCAL_WORLD_SIZE=str(nproc),
                   MASTER_ADDR="localhost", MASTER_PORT=port))
             for r in range(nproc)]
-  start = time.perf_counter()
   procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
            for cmd, env in cmds]
@@ -3703,7 +2616,6 @@ def launch_ranks(nproc: int, job: str, out_dir: str, tag: str, args=(),
       if p.poll() is None:
         p.kill()
         p.wait()
-  seconds = time.perf_counter() - start
   for p, out in zip(procs, outs):
     if p.returncode != 0:
       say(out[-6000:])
@@ -3712,13 +2624,12 @@ def launch_ranks(nproc: int, job: str, out_dir: str, tag: str, args=(),
   for r in range(nproc):
     with open(os.path.join(out_dir, f"rank{r}.json")) as f:
       records.append(json.load(f))
-  return records, seconds
+  return records
 
 
-def phase_ddp_pair(card_line: str) -> tuple:
+def phase_ddp_pair() -> None:
   """[ddp-2rank]: two gloo ranks on cuda:0, started from an empty kernel
-  build directory (both build the attention kernels at once). Returns the
-  forward and backward launches of both ranks."""
+  build directory (both build the attention kernels at once)."""
   from score_sde_pytorch_tpu_torch.ops import build
   removed = [p.name for p in build.BUILD_DIR.glob("*.so")]
   for name in removed:
@@ -3726,12 +2637,8 @@ def phase_ddp_pair(card_line: str) -> tuple:
   say(f"[ddp-2rank] build directory emptied ({len(removed)} libraries): both "
       "ranks build the attention kernels at once")
   with tempfile.TemporaryDirectory() as out_dir:
-    ranks, seconds = launch_ranks(2, "pair", out_dir, "[ddp-2rank]")
+    ranks = launch_ranks(2, "pair", out_dir, "[ddp-2rank]")
   r0 = ranks[0]
-  say(f"[ddp-2rank] 2 gloo ranks on cuda:0: {seconds:.1f} s "
-      f"wall, the ranks' scripts {[round(r['worker_s'], 1) for r in ranks]} "
-      f"s; nvcc per rank {[round(r['nvcc_s'], 2) for r in ranks]} s")
-  fwd = bwd = 0
   for r in ranks:
     tag = f"[ddp-2rank] rank {r['rank']}"
     want = ATTN_PER_FORWARD * DDP_STEPS
@@ -3761,9 +2668,6 @@ def phase_ddp_pair(card_line: str) -> tuple:
           and r["pc_nfe"] == r0["pc_nfe_one"],
           f"{tag}: NFE {r['pc_nfe']}, {r['bpd_nfe']} against one process's "
           f"{r0['pc_nfe_one']}, {r0['bpd_nfe_one']}")
-    for key in ("train", "pc", "bpd", "church"):
-      fwd += r[f"{key}_launches"]["forward"]
-      bwd += r[f"{key}_launches"]["backward"]
     say(f"{tag}: launches forward/backward per rank: train "
         f"{r['train_launches']}, PC {r['pc_launches']} ({r['pc_evals']} "
         f"evaluations), bits/dim {r['bpd_launches']} (NFE {r['bpd_nfe']}), "
@@ -3774,10 +2678,6 @@ def phase_ddp_pair(card_line: str) -> tuple:
       f"max |2 ranks - 1 process| {r0['train_err']:.3e} (tolerance "
       f"{DDP_PARAM_TOL:g}; the attention key bias NIN_1.b, whose gradient is "
       f"0 up to rounding, {r0['key_bias_err']:.3e}); ranks bit-equal")
-  say(f"[ddp-2rank] (a) step ms: 2 gloo ranks {r0['train_ms']:.2f} vs one "
-      f"process at {TRAIN_BATCH} {r0['one_ms']:.2f}; gloo all_reduce of "
-      f"{r0['train_params']} fp32 ({r0['train_params'] * 4 / 1e6:.1f} MB) "
-      f"{[round(t, 2) for t in r0['allreduce_ms']]} ms ({card_line})")
   say(f"[ddp-2rank] (b) PC at global batch {DDP_SAMPLE_BATCH}, num_scales "
       f"{SMOKE_SCALES}: max |2 ranks - 1 process| / max |samples| "
       f"{r0['pc_err']:.3e} (tolerance {DDP_SAMPLE_RTOL:g}), NFE "
@@ -3787,8 +2687,8 @@ def phase_ddp_pair(card_line: str) -> tuple:
       f"difference| {r0['bpd_err']:.3e} (tolerance {DDP_BPD_TOL:g}); bpd "
       f"{[round(b, 4) for b in r0['bpd']]}")
   say(f"[ddp-2rank] (d) church NCSN++ (remat) {DDP_STEPS} steps at global "
-      f"batch {DDP_CHURCH_BATCH}: losses {r0['church_losses']}, last step "
-      f"{r0['church_ms']:.1f} ms, ranks bit-equal ({card_line})")
+      f"batch {DDP_CHURCH_BATCH}: losses {r0['church_losses']}, ranks "
+      "bit-equal")
   check(r0["train_err"] <= DDP_PARAM_TOL, f"[ddp-2rank] weights "
         f"{r0['train_err']:.3e} from one process's")
   check(r0["key_bias_err"] <= 2 * DDP_STEPS * 2e-4,
@@ -3799,10 +2699,9 @@ def phase_ddp_pair(card_line: str) -> tuple:
         f"[ddp-2rank] PC samples {r0['pc_err']:.3e} from one process's")
   check(r0["bpd_err"] <= DDP_BPD_TOL,
         f"[ddp-2rank] bits/dim {r0['bpd_err']:.3e} from one process's")
-  return fwd, bwd
 
 
-def phase_space_pair(card_line: str) -> tuple:
+def phase_space_pair() -> None:
   """[space-2rank]: two gloo ranks on cuda:0 split each image's height
   (``parallel.init_grid(2)``: a (1, 2) grid), TF32 off. Each file against
   one process at the same global batch on the same seeds: (a) the church
@@ -3814,20 +2713,15 @@ def phase_space_pair(card_line: str) -> tuple:
   within 1e-2 relative; (c) the 1024² file in fp32 with remat at global
   batch 2, the forward and one step to (a)'s gates. Every rank's attention
   launches are held to the files' counts at the slab's lengths (N_q = N /
-  2 queries against N keys), the backward calls to as many per step.
-  Returns the split runs' forward and backward launches of both ranks."""
+  2 queries against N keys), the backward calls to as many per step."""
   with tempfile.TemporaryDirectory() as out_dir:
-    ranks, seconds = launch_ranks(2, "space", out_dir, "[space-2rank]")
-  say(f"[space-2rank] 2 gloo ranks on cuda:0, a (1, 2) grid: {seconds:.1f} s "
-      f"wall, the ranks' scripts {[round(r['worker_s'], 1) for r in ranks]} "
-      "s")
+    ranks = launch_ranks(2, "space", out_dir, "[space-2rank]")
   runs = (("church", "(a) church 256² fp32", SPACE_CHURCH_BATCH,
            SPACE_CHURCH_ATTN, 256, SPACE_STEPS),
           ("bf16", "(b) church 256² bf16", SPACE_CHURCH_BATCH,
            SPACE_CHURCH_ATTN, 256, 1),
           ("hq1024", "(c) 1024² fp32", SPACE_1024_BATCH, SPACE_1024_ATTN, 512,
            1))
-  fwd = bwd = 0
   for key, what, batch, attn_rows, c, steps in runs:
     want_rows = [[q, k, batch, c] for q, k in attn_rows]
     for r in ranks:
@@ -3847,8 +2741,6 @@ def phase_space_pair(card_line: str) -> tuple:
       check(run["finite"] and all(math.isfinite(v) for v in run["losses"]),
             f"{tag}: losses {run['losses']}")
       check(run["ranks_equal"], f"{tag}: the ranks' weights differ")
-      fwd += n * (1 + steps)
-      bwd += n * steps
     r0 = ranks[0][key]
     one = r0["one"]
     comm = r0["comm"]
@@ -3871,16 +2763,13 @@ def phase_space_pair(card_line: str) -> tuple:
           f"(the key bias NIN_1.b and those whose gradients do not agree; "
           f"{r0['exempt_other']} under the batch split) up to "
           f"{r0['exempt_gap']:.3e} apart (bound {r0['gap_bound']:.1e})")
-    say(f"[space-2rank] {what}: step ms {[round(v, 2) for v in r0['ms']]} "
-        f"(ranks: {[[round(v, 2) for v in r[key]['ms']] for r in ranks]}) vs "
-        f"one process {[round(v, 2) for v in one['ms']]}; peak "
-        f"max_memory_allocated per rank "
+    say(f"[space-2rank] {what}: peak max_memory_allocated per rank "
         f"{[round(r[key]['peak_gib'], 3) for r in ranks]} GiB vs one process "
         f"{one['peak_gib']:.3f} GiB; per step on rank 0: halo "
         f"{comm['halo_bytes'] / steps / 1e6:.2f} MB, gather "
         f"{comm['gather_bytes'] / steps / 1e6:.2f} MB, all-reduce "
         f"{comm['reduce_bytes'] / steps / 1e6:.3f} MB, replicated ops "
-        f"{comm['replicated_ops']} ({card_line})")
+        f"{comm['replicated_ops']}")
     say(f"[space-2rank] {what}: attention per forward per rank at "
         f"(N_q, N_kv, B, C) {r0['forward_shapes']}; launches forward "
         f"{r0['forward_launches']}, train {r0['step_launches']} (one process "
@@ -3905,22 +2794,12 @@ def phase_space_pair(card_line: str) -> tuple:
     check(r0["exempt_gap"] <= r0["gap_bound"],
           f"[space-2rank] {what}: where the gradients do not agree, weights "
           f"{r0['exempt_gap']:.3e} apart (bound {r0['gap_bound']:.1e})")
-  return fwd, bwd
 
 
-def _logged_step_ms(workdir: str) -> dict:
-  """``step -> ms`` of the ``training_loss`` lines in stdout.txt."""
-  with open(os.path.join(workdir, "stdout.txt")) as f:
-    return {int(s): float(v) * 1e3 for s, v in re.findall(
-        r"step: (\d+), training_loss: \S+ \((\S+) s/step\)", f.read())}
-
-
-def phase_ddp_nccl(torch, attn, card_line: str, plain_ms: float) -> tuple:
+def phase_ddp_nccl(torch) -> None:
   """[ddp-nccl]: ``main --mode train`` under torchrun at world size 1 on
   NCCL, the flagship at batch 128: 4 steps with a checkpoint at 4, then a
-  resume to 6; its logged ms/step beside the same run's in this process
-  without a group and [train]'s ``plain_ms``. Returns the forward and
-  backward launches."""
+  resume to 6; and the same 4 steps in this process without a group."""
   from score_sde_pytorch_tpu_torch import checkpoint, main
   first, resume = DDP_NCCL_STEPS
 
@@ -3936,34 +2815,26 @@ def phase_ddp_nccl(torch, attn, card_line: str, plain_ms: float) -> tuple:
             "--config.training.snapshot_sampling=False"]
 
   with tempfile.TemporaryDirectory() as workdir:
-    _reset(attn)
+    _reset()
     captured = _graph("capture")
     main.main(flags(workdir, first))
     captures = _graph("capture") - captured
-    check(_counts(attn) == {"forward": ATTN_PER_FORWARD * (first + captures),
-                            "backward": ATTN_PER_FORWARD * first},
-          f"[ddp-nccl] launches without a group {_counts(attn)}")
-    fwd, bwd = _counts(attn).values()
-    alone = _logged_step_ms(workdir)
+    check(_counts() == {"forward": ATTN_PER_FORWARD * (first + captures),
+                        "backward": ATTN_PER_FORWARD * first},
+          f"[ddp-nccl] launches without a group {_counts()}")
   with tempfile.TemporaryDirectory() as workdir:
     out_dir = os.path.join(workdir, "ranks")
-    runs = []
+    losses = []
     for n_iters in (first, resume):
-      args = flags(workdir, n_iters)
-      (rec,), seconds = launch_ranks(1, "cli", out_dir, "[ddp-nccl]", args,
-                                     torchrun=True)
-      say(f"[ddp-nccl] to step {n_iters}: {seconds:.1f} s wall of torchrun, "
-          f"of which the rank's script {rec['worker_s']:.1f} s and main "
-          f"{rec['main_s']:.1f} s")
+      (rec,) = launch_ranks(1, "cli", out_dir, "[ddp-nccl]",
+                            flags(workdir, n_iters), torchrun=True)
       steps = n_iters - rec["returned"]["initial_step"]
       check(rec["evals"] == steps and rec["launches"] == {
           "forward": ATTN_PER_FORWARD * steps,
           "backward": ATTN_PER_FORWARD * steps},
             f"[ddp-nccl] {rec['evals']} evaluations, launches "
             f"{rec['launches']} for {steps} steps")
-      fwd += rec["launches"]["forward"]
-      bwd += rec["launches"]["backward"]
-      runs.append((rec, seconds))
+      losses += [v for _, v in rec["returned"]["train_losses"]]
     with open(os.path.join(workdir, "stdout.txt")) as f:
       log = f.read()
     check(f"Starting training loop at step {first}" in log,
@@ -3973,21 +2844,11 @@ def phase_ddp_nccl(torch, attn, card_line: str, plain_ms: float) -> tuple:
                       weights_only=True)
     check(meta["step"] == first and len(meta["rng"]["ranks"]) == 1,
           f"[ddp-nccl] rolling checkpoint at step {meta['step']}")
-    ms = _logged_step_ms(workdir)
-  steady = sorted(ms[s] for s in range(2, first + 1))
-  steady_alone = sorted(alone[s] for s in range(2, first + 1))
-  losses = [v for rec, _ in runs for _, v in rec["returned"]["train_losses"]]
   check(len(losses) == resume and all(math.isfinite(v) for v in losses),
         f"[ddp-nccl] losses {losses}")
   say(f"[ddp-nccl] torchrun --nproc_per_node=1, nccl, main --mode train at "
-      f"batch {TRAIN_BATCH}: {first} steps in {runs[0][1]:.1f} s wall, the "
-      f"resume to {resume} in {runs[1][1]:.1f} s (process start, build and "
-      f"checkpoints included); logged ms/step at steps 2-{first} (a loss "
-      f"read each step) {[round(v, 2) for v in steady]} (median "
-      f"{steady[1]:.2f}) vs the same run in this process without a group "
-      f"{[round(v, 2) for v in steady_alone]} (median {steady_alone[1]:.2f})"
-      f" and [train]'s step without DDP {plain_ms:.2f} ({card_line})")
-  return fwd, bwd
+      f"batch {TRAIN_BATCH}: {first} steps, then the resume to {resume}; "
+      f"losses {losses}")
 
 
 def _write_npz_split(root: str, images: int, size: int) -> str:
@@ -4001,13 +2862,11 @@ def _write_npz_split(root: str, images: int, size: int) -> str:
   return root
 
 
-def phase_ddp_cli(card_line: str) -> tuple:
+def phase_ddp_cli() -> None:
   """[ddp-cli]: two gloo ranks on cuda:0 run the flagship's ``main --mode
   train`` (with rank 0's sample grid), a resume, ``--mode eval`` (loss,
-  bits/dim, PC sampling) and ``--mode sample``. Returns the forward and
-  backward launches of both ranks."""
+  bits/dim, PC sampling) and ``--mode sample``."""
   import numpy as np
-  fwd = bwd = 0
   common = ["--config", FLAGSHIP, "--device", "cuda:0", "--dist_backend",
             "gloo", f"--config.model.num_scales={DDP_CLI_SCALES}"]
   nfe = 2 * DDP_CLI_SCALES
@@ -4040,8 +2899,7 @@ def phase_ddp_cli(card_line: str) -> tuple:
                     f"--config.eval.batch_size={DDP_EVAL_BATCH}"]),
     ]
     for name, args in runs:
-      ranks, seconds = launch_ranks(2, "cli", out_dir, "[ddp-cli]",
-                                    common + args)
+      ranks = launch_ranks(2, "cli", out_dir, "[ddp-cli]", common + args)
       for r, rec in enumerate(ranks):
         returned = rec["returned"]
         if name in ("train", "resume"):
@@ -4060,13 +2918,9 @@ def phase_ddp_cli(card_line: str) -> tuple:
             "backward": ATTN_PER_FORWARD * backward},
               f"[ddp-cli] {name} rank {r}: {rec['evals']} evaluations "
               f"(want {evals}), launches {rec['launches']}")
-        fwd += rec["launches"]["forward"]
-        bwd += rec["launches"]["backward"]
-      say(f"[ddp-cli] {name}: {seconds:.1f} s wall, of which "
-          f"the ranks' scripts {[round(r['worker_s'], 1) for r in ranks]} s "
-          f"and main {[round(r['main_s'], 1) for r in ranks]} s; per rank "
-          f"evaluations {[rec['evals'] for rec in ranks]}, launches "
-          f"{[rec['launches'] for rec in ranks]} ({card_line})")
+      say(f"[ddp-cli] {name}: per rank evaluations "
+          f"{[rec['evals'] for rec in ranks]}, launches "
+          f"{[rec['launches'] for rec in ranks]}")
       if name == "resume":
         losses = [r["returned"]["train_losses"] for r in ranks]
         check(losses[0] == losses[1] and len(losses[0]) == 2,
@@ -4096,7 +2950,6 @@ def phase_ddp_cli(card_line: str) -> tuple:
     check(shapes == [(DDP_EVAL_BATCH, 32, 32, 3),
                      (DDP_EVAL_BATCH // 2, 32, 32, 3)],
           f"[ddp-cli] generated {shapes}")
-  return fwd, bwd
 
 
 def main() -> int:
@@ -4109,37 +2962,14 @@ def main() -> int:
   from score_sde_pytorch_tpu_torch.models import layers
   from score_sde_pytorch_tpu_torch.models import utils as mutils
   from score_sde_pytorch_tpu_torch.ops import attention as attn
-  from score_sde_pytorch_tpu_torch.ops import fused_act as act
-  from score_sde_pytorch_tpu_torch.ops import group_norm as gn
+  from score_sde_pytorch_tpu_torch.ops import bench_kernels
+  from score_sde_pytorch_tpu_torch.utils import tracing
 
   card_line = card()
   say(f"[card] {card_line}; torch {torch.__version__}, CUDA "
       f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-  start = time.perf_counter()
-
-  def lap(what: str) -> None:
-    say(f"[time] {what} done at {time.perf_counter() - start:.1f} s")
-
-  phase_build(attn, act, gn)
 
   defaults = _tf32_off(torch)
-  record = phase_kernel(torch, attn)
-  record_bwd = phase_kernel_bwd(torch, attn)
-  record_512 = phase_kernel(torch, attn, ATTN_512_SHAPES, "[kernel-512]")
-  record_bwd_512 = phase_kernel_bwd(torch, attn, ATTN_512_SHAPES,
-                                    "[kernel-bwd-512]")
-  for rec, wide in ((record, record_512), (record_bwd, record_bwd_512)):
-    rec["max_abs_err"] = max(rec["max_abs_err"], wide["max_abs_err"])
-  phase_kernel_bf16(torch, attn, card_line)
-  record_act, record_act_bwd = phase_fused_act(torch, act)
-  lap("the kernel phases")
-  record_gn, record_gn_bwd = phase_group_norm(torch, gn, layers)
-  lap("[group-norm]")
-  # The kernels' row counts the model runs from here on, as the attention
-  # rows do: the counters restart after [group-norm]'s own calls.
-  gn.group_norm_launches.update(dict.fromkeys(gn.group_norm_launches, 0))
-  gn_replays = _graph("replay")
-
   config = configs.load_config(
       FLAGSHIP, [f"model.num_scales={SMOKE_SCALES}",
                  f"eval.batch_size={SMOKE_BATCH}"])
@@ -4161,75 +2991,56 @@ def main() -> int:
   # Sampling, training and evaluation run as a user runs them: PyTorch's
   # default TF32 settings.
   _tf32_restore(torch, defaults)
-  learn = phase_learn(torch, attn, card_line)
-  lap("[learn]")
-  launches = phase_sample(torch, attn, config, model, card_line)
-  attn.flash_attention_launches = 0
-  phase_sample_profile(torch, model, card_line)
-  profile_launches = attn.flash_attention_launches
-  check(profile_launches == ATTN_PER_FORWARD * PROFILE_SCALES * 2 * 3,
-        f"{profile_launches} kernel launches in 3 sampler runs of "
-        f"{PROFILE_SCALES * 2} NFE")
-  act.fused_leaky_relu_launches = act.fused_leaky_relu_backward_launches = 0
+  phase_learn()
+  phase_sample(config, model)
+  _reset()
+  evals = phase_sampler(torch, model)
+  check(_counts()["forward"] == ATTN_PER_FORWARD * evals
+        == ATTN_PER_FORWARD * SAMPLER_SCALES * 2,
+        f"[sampler] {_counts()['forward']} kernel launches in {evals} "
+        f"evaluations, want {ATTN_PER_FORWARD} x {SAMPLER_SCALES * 2}")
   with tempfile.TemporaryDirectory() as workdir:
-    train_fwd, train_bwd, train_ms = phase_train(torch, attn, card_line,
-                                                 workdir)
-    eval_fwd, eval_bwd = phase_eval(torch, attn, workdir, card_line)
-    act_launches = (act.fused_leaky_relu_launches,
-                    act.fused_leaky_relu_backward_launches)
-    phase_eval_checks(torch, attn, config, model, workdir, card_line)
-    debug_fwd = phase_debug(torch, attn, workdir, card_line)
+    phase_train(torch, workdir)
+    phase_eval(workdir)
+    phase_eval_checks(torch, attn, config, model, workdir)
+    phase_debug(torch, workdir)
   del model
-  lap("[sample], [train], [eval], [stats], [debug]")
-  uri = phase_uri(torch, attn, card_line)
-  demo = phase_demo(torch, attn, card_line)
-  lap("[uri], [demo]")
-  ddp = [phase_ddp_pair(card_line),
-         phase_ddp_nccl(torch, attn, card_line, train_ms),
-         phase_ddp_cli(card_line)]
-  lap("[ddp-2rank], [ddp-nccl], [ddp-cli]")
-  ddp.append(phase_space_pair(card_line))
-  lap("[space-2rank]")
+  phase_uri(torch)
+  phase_demo(torch)
+  phase_ddp_pair()
+  phase_ddp_nccl(torch)
+  phase_ddp_cli()
+  phase_space_pair()
   with tempfile.TemporaryDirectory() as workdir:
-    vp_train = phase_vp_train(torch, attn, card_line, workdir)
-    vp_sample = phase_main_sample(
-        torch, attn, VP_CONFIG, workdir, [f"model.num_scales={SMOKE_SCALES}"],
-        ATTN_PER_FORWARD, SMOKE_SCALES, SMOKE_BATCH, "[vp-sample]",
-        card_line, rounds=SMOKE_ROUNDS)
-    vp_eval = phase_vp_eval(torch, attn, workdir, card_line)
-  ddpm_sample = phase_ddpm(torch, attn, card_line)
-  samplers = phase_samplers(torch, attn, vp_model, card_line)
-  attn.flash_attention_launches = 0
-  evals = phase_sample_profile(torch, vp_model, card_line, VP_CONFIG,
-                               VP_PROFILE_SCALES, tag="[vp-profile]")
-  check(evals == VP_PROFILE_SCALES
-        and attn.flash_attention_launches == ATTN_PER_FORWARD * evals * 3,
-        f"[vp-profile] {attn.flash_attention_launches} kernel launches in 3 "
-        f"sampler runs of {evals} evaluations")
+    phase_vp_train(torch, workdir)
+    phase_main_sample(torch, VP_CONFIG, workdir,
+                      [f"model.num_scales={SMOKE_SCALES}"], ATTN_PER_FORWARD,
+                      SMOKE_SCALES, SMOKE_BATCH, "[vp-sample]",
+                      rounds=SMOKE_ROUNDS)
+    phase_vp_eval(torch, workdir)
+  phase_ddpm(torch, attn)
+  phase_samplers(torch, vp_model)
+  _reset()
+  evals = phase_sampler(torch, vp_model, VP_CONFIG, VP_SAMPLER_SCALES,
+                        tag="[vp-sampler]")
+  check(evals == VP_SAMPLER_SCALES
+        and _counts()["forward"] == ATTN_PER_FORWARD * evals,
+        f"[vp-sampler] {_counts()['forward']} kernel launches in {evals} "
+        "evaluations")
   del vp_model
-  lap("the VP phases")
-  ddpm256 = phase_ddpm256(torch, attn, card_line)
-  lap("[ddpm-256*]")
-  hires = phase_hires(torch, attn, card_line)
-  lap("[hires-*]")
-  hires_1024 = phase_hires_1024(torch, attn, card_line)
-  phase_ncsn(torch, attn, card_line)
-  lap("[hires-1024], [ncsn*]")
-  phase_ncsnv2(torch, attn, card_line)
-  lap("[ncsnv2*]")
-  bf16_church = phase_bf16_church(torch, attn, card_line)
-  bf16_1024 = phase_bf16_1024(torch, attn, card_line)
-  leaves = phase_h100_leaves(torch, attn, card_line)
-  lap("[bf16-*], [h100-leaves]")
+  phase_ddpm256(torch, attn)
+  phase_hires(torch, attn)
+  phase_hires_1024(torch, attn)
+  phase_ncsn(torch)
+  phase_ncsnv2(torch)
+  phase_bf16_church(torch)
+  phase_bf16_1024(torch)
+  phase_h100_leaves(torch)
   with tempfile.TemporaryDirectory() as data_root:
-    data = [phase_data_church(torch, attn, data_root, card_line)]
-    lap("[data-church]")
-    data.append(phase_data_ffhq(torch, attn, data_root, card_line))
-    lap("[data-ffhq]")
-    data.append(phase_data_celeba(torch, attn, data_root, card_line))
-    lap("[data-celeba]")
-    phase_data_native(data_root, card_line)
-    lap("[data-native]")
+    phase_data_church(torch, data_root)
+    phase_data_ffhq(torch, data_root)
+    phase_data_celeba(torch, data_root)
+    phase_data_native(data_root)
   # The card's machine has jax installed, so an import of it would not fail;
   # nor would one of the JAX package, which sits beside the port.
   leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -4237,43 +3048,59 @@ def main() -> int:
   check(not leaked, f"the port imported JAX, the JAX package or "
         f"TensorFlow: {leaked[:5]}")
 
-  # GroupNorm calls of every model run after [group-norm] in this process
-  # (the ddp and space ranks run in processes of their own and are left
-  # out): those through the wrapper, and a replayed resblock's at each
-  # replay, forward and backward, which the counters saw only at capture.
-  gn_replays = GN_PER_RESBLOCK * (_graph("replay") - gn_replays)
-  gn_calls = [gn.group_norm_launches[f"onchip_{d}"]
-              + gn.group_norm_launches[f"split_{d}"] + gn_replays
+  # Every kernel call of the runs above in this process (the ddp and space
+  # ranks run in processes of their own and are left out); a replayed
+  # resblock's GroupNorm calls, forward and backward, which the counters
+  # saw only at capture, at each replay.
+  launched = {name: tracing.count_of(name) for name in KERNEL_COUNTERS}
+  replayed = GN_PER_RESBLOCK * _graph("replay")
+  gn_calls = [launched[f"kernel.group_norm.onchip_{d}"]
+              + launched[f"kernel.group_norm.split_{d}"] + replayed
               for d in ("fwd", "bwd")]
+  # Each kernel's ms, plain ms, library ms, bound and errors at one shape,
+  # TF32 off, from the kernel bench, which takes the kernel's side through
+  # the port's wrapper (with autograd for the backward). Each row's error
+  # is held to the kernel's own bound (the cuda tests hold the other shapes
+  # and dtypes): attention forward 2e-5; its backward 5e-4 absolute +
+  # relative; fused act 1e-6; GroupNorm 1e-5 of each tensor's largest
+  # entry.
+  defaults = _tf32_off(torch)
+  shapes = RECORD_SHAPES
   kernels = [
       ("flash_attention_forward", KERNEL_SOURCE, TPU_KERNEL,
-       launches + train_fwd + eval_fwd + vp_train[0] + vp_sample
-       + vp_eval[0] + ddpm_sample + samplers + ddpm256[0] + hires[0]
-       + hires_1024[0] + bf16_church[0] + bf16_1024[0]
-       + sum(d[0] for d in data) + sum(d[0] for d in ddp) + uri[0] + demo[0]
-       + debug_fwd + leaves[0] + learn[0], record),
+       launched["kernel.attention.fwd"],
+       bench_kernels.attention_forward(*shapes["attention_forward"]),
+       "max_abs_err", 2e-5),
       ("flash_attention_backward", KERNEL_SOURCE, TPU_BWD,
-       train_bwd + eval_bwd + vp_train[1] + vp_eval[1] + ddpm256[1]
-       + hires[1] + hires_1024[1] + bf16_church[1] + bf16_1024[1]
-       + sum(d[1] for d in data) + sum(d[1] for d in ddp) + uri[1] + demo[1]
-       + leaves[1] + learn[1], record_bwd),
-      # On no model's path: the sample, train and eval runs launch it 0
-      # times.
-      ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT, act_launches[0],
-       record_act),
-      ("fused_leaky_relu_backward", ACT_SOURCE, TPU_ACT, act_launches[1],
-       record_act_bwd),
+       launched["kernel.attention.bwd"],
+       bench_kernels.attention_backward(*shapes["attention_backward"]),
+       "abs_rel_err", 5e-4),
+      # On no model's path: the runs above launch it 0 times.
+      ("fused_leaky_relu_forward", ACT_SOURCE, TPU_ACT,
+       launched["kernel.fused_act.fwd"],
+       bench_kernels.fused_act_forward(shapes["fused_act"]),
+       "max_abs_err", 1e-6),
+      ("fused_leaky_relu_backward", ACT_SOURCE, TPU_ACT,
+       launched["kernel.fused_act.bwd"],
+       bench_kernels.fused_act_backward(shapes["fused_act"]),
+       "max_abs_err", 1e-6),
       ("group_norm_forward", GN_SOURCE, GN_REPLACES, gn_calls[0],
-       record_gn),
+       bench_kernels.group_norm_forward(shapes["group_norm"]),
+       "scaled_err", 1e-5),
       ("group_norm_backward", GN_SOURCE, GN_REPLACES, gn_calls[1],
-       record_gn_bwd),
+       bench_kernels.group_norm_backward(shapes["group_norm"]),
+       "scaled_err", 1e-5),
   ]
+  _tf32_restore(torch, defaults)
+  for name, _, _, _, rec, key, limit in kernels:
+    check(rec[key] <= limit, f"[kernels] {name} at {rec['shape']} "
+          f"{rec['dtype']}: {key} {rec[key]:.3g} > {limit:.0e}")
   say(json.dumps({"kernels": [{
       "name": name, "route": "cuda", "source": source, "replaces": replaces,
       "launches": n, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
       "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
       "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-      for name, source, replaces, n, rec in kernels]}))
+      for name, source, replaces, n, rec, _, _ in kernels]}))
   say(card_line)
   say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

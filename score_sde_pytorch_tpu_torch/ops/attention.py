@@ -21,9 +21,10 @@ queries against the keys and values gathered from every rank,
   dQ); :func:`dense_attention_backward` is its plain version, mirroring the
   JAX package's ``_flash_bwd_impl``. On the CPU the gradient is autograd
   through :func:`dense_attention`.
-- ``flash_attention_launches`` counts forward kernel launches and
-  ``flash_attention_backward_launches`` backward calls, so a run can show
-  that its attention went through the kernels.
+- The counters ``kernel.attention.fwd`` (a forward launch) and
+  ``kernel.attention.bwd`` (a backward call, its three kernels) of
+  ``utils/tracing.py`` show that a run's attention went through the
+  kernels.
 """
 from __future__ import annotations
 
@@ -34,12 +35,6 @@ import torch
 
 from score_sde_pytorch_tpu_torch.ops import build
 from score_sde_pytorch_tpu_torch.utils import tracing
-
-# Kernel launches in this process: `_launch_flash_attention` adds one per
-# forward launch, `_launch_flash_attention_backward` one per backward call
-# (its three kernels), and nothing else in the package touches them.
-flash_attention_launches = 0
-flash_attention_backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 512  # the widest attention of any shipped config (16 x 32, 128 x 4)
@@ -140,7 +135,6 @@ def _launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
   """Forward kernel; returns ``(out, lse)``, with ``lse`` the fp32
   [B, N_q] row log-sum-exp when ``with_lse`` (the backward needs it), else
   None."""
-  global flash_attention_launches
   fn = kernel_library().handle.flash_attention_forward
   b, n_q, c = q.shape
   out = torch.empty_like(q)
@@ -153,13 +147,12 @@ def _launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
              lse.data_ptr() if with_lse else None, b, n_q, k.shape[1], c,
              c ** -0.5, _DTYPE_CODES[q.dtype], stream)
   _raise_on(err, "flash_attention", q, k)
-  flash_attention_launches += 1
+  tracing.count("kernel.attention.fwd")
   return out, lse
 
 
 def _launch_flash_attention_backward(q, k, v, out, lse, dout):
   """Backward kernels; returns ``(dq, dk, dv)`` in the inputs' dtype."""
-  global flash_attention_backward_launches
   lib = kernel_library().handle
   b, n_q, c = q.shape
   n_kv = k.shape[1]
@@ -182,7 +175,7 @@ def _launch_flash_attention_backward(q, k, v, out, lse, dout):
         dk.data_ptr(), dv.data_ptr(), b, n_q, n_kv, c, c ** -0.5,
         _DTYPE_CODES[q.dtype], stream)
   _raise_on(err, "flash_attention backward", q, k)
-  flash_attention_backward_launches += 1
+  tracing.count("kernel.attention.bwd")
   return dq, dk, dv
 
 

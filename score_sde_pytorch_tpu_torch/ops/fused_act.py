@@ -13,8 +13,8 @@ in the torch reference's op (the JAX package is NHWC, over the last dim).
   kernels in ``csrc/fused_act.cu`` (forward, and ``grad_x`` in the
   backward; the bias gradient is ``torch.sum`` of ``grad_x``), or the call
   raises. No model of the repository calls it.
-- ``fused_leaky_relu_launches`` and ``fused_leaky_relu_backward_launches``
-  count kernel launches.
+- The counters ``kernel.fused_act.fwd`` and ``kernel.fused_act.bwd`` of
+  ``utils/tracing.py`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -26,10 +26,7 @@ from typing import Optional
 import torch
 
 from score_sde_pytorch_tpu_torch.ops import build
-
-# Kernel launches in this process; only the two launchers below add to them.
-fused_leaky_relu_launches = 0
-fused_leaky_relu_backward_launches = 0
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SQRT2 = math.sqrt(2.0)
@@ -112,21 +109,19 @@ def _launch(fn, x, bias, tensors, slope, scale) -> None:
 
 
 def _launch_forward(x, bias, slope, scale) -> torch.Tensor:
-  global fused_leaky_relu_launches
   out = torch.empty_like(x)
   _launch(kernel_library().handle.fused_leaky_relu_forward, x, bias, (out,),
           slope, scale)
-  fused_leaky_relu_launches += 1
+  tracing.count("kernel.fused_act.fwd")
   return out
 
 
 def _launch_backward(x, bias, grad_out, slope, scale) -> torch.Tensor:
-  global fused_leaky_relu_backward_launches
   grad_out = grad_out.contiguous()
   grad_x = torch.empty_like(x)
   _launch(kernel_library().handle.fused_leaky_relu_backward, x, bias,
           (grad_out, grad_x), slope, scale)
-  fused_leaky_relu_backward_launches += 1
+  tracing.count("kernel.fused_act.bwd")
   return grad_x
 
 

@@ -22,7 +22,8 @@ layer of NCSN++'s device time, so it has Hopper kernels of its own.
   (forward: statistics, then normalise; backward: reductions, then dx),
   with the space group's all-reduce of the statistics between the two
   passes.
-- ``group_norm_launches`` counts the calls of each path that launched its
+- The counters ``kernel.group_norm.{onchip,split}_{fwd,bwd}`` of
+  ``utils/tracing.py`` count the calls of each path that launched its
   kernels (on-chip: 1 kernel forward, 2 backward; split: 2 forward, 4
   backward).
 """
@@ -38,11 +39,7 @@ import torch.nn.functional as F
 
 from score_sde_pytorch_tpu_torch.ops import build
 from score_sde_pytorch_tpu_torch.parallel import distributed, spatial
-
-# Calls of each path that launched its kernels in this process; only
-# _GroupNormAct adds to them.
-group_norm_launches = {"onchip_fwd": 0, "onchip_bwd": 0, "split_fwd": 0,
-                       "split_bwd": 0}
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 ACTS = (None, "swish")
 # Elements of one vector: the kernels load and store 4 at a time, so H·W
@@ -240,7 +237,7 @@ def _launch_forward(x, weight, bias, num_groups, eps, act, group) -> tuple:
             stats.data_ptr())
     if _onchip(x, num_groups, group):
       _check(fn(0, *args, None, *common, 1, *tail, stream), "forward", x)
-      group_norm_launches["onchip_fwd"] += 1
+      tracing.count("kernel.group_norm.onchip_fwd")
       return y, stats
     parts = _chunks(cg * s)
     partial = torch.empty(b, g, parts, 2, device=x.device,
@@ -252,7 +249,7 @@ def _launch_forward(x, weight, bias, num_groups, eps, act, group) -> tuple:
       stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(2, *args, partial.data_ptr(), *common, parts, *tail, stream),
            "forward", x)
-  group_norm_launches["split_fwd"] += 1
+  tracing.count("kernel.group_norm.split_fwd")
   return y, stats
 
 
@@ -276,7 +273,7 @@ def _launch_backward(x, weight, bias, num_groups, eps, act, group, stats,
     if _onchip(x, num_groups, group):
       _check(fn(0, *head, None, None, *params, 1, *tail, stream), "backward",
              x)
-      group_norm_launches["onchip_bwd"] += 1
+      tracing.count("kernel.group_norm.onchip_bwd")
       return dx, dweight, dbias
     parts = _chunks(s)
     part = torch.empty(b, c, parts, 2, device=x.device, dtype=torch.float32)
@@ -288,7 +285,7 @@ def _launch_backward(x, weight, bias, num_groups, eps, act, group, stats,
       stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(2, *head, part.data_ptr(), gsum.data_ptr(), *params, parts,
               *tail, stream), "backward", x)
-  group_norm_launches["split_bwd"] += 1
+  tracing.count("kernel.group_norm.split_bwd")
   return dx, dweight, dbias
 
 

@@ -15,8 +15,15 @@ and its parts ``train.loss``, ``train.backward``, ``train.optimize``,
 the input pipeline's next batch; ``graph.replay`` around each replayed
 resblock graph (``models/graphs.py``). ``count(name)`` adds to a count
 alone: ``graph.eager``, ``graph.capture``, ``graph.capture_refused``,
-``graph.capture_failed``.
-``counters()`` returns their totals.
+``graph.capture_failed``; and, at each launch of a hand-written kernel
+(``ops/``), ``kernel.attention.fwd`` (a forward launch),
+``kernel.attention.bwd`` (a backward call: its three kernels),
+``kernel.fused_act.fwd``, ``kernel.fused_act.bwd``, and
+``kernel.group_norm.onchip_fwd``, ``.onchip_bwd``, ``.split_fwd``,
+``.split_bwd`` (a call on each GroupNorm path). A CUDA graph's replay
+launches its kernels without the Python that counts them: they count at
+its capture. ``counters()`` returns the totals, ``count_of(name)`` one
+count.
 """
 from __future__ import annotations
 
@@ -65,6 +72,14 @@ class counted:
 def count(name: str) -> None:
   """Adds one to counter ``name``'s count, and no seconds."""
   _totals[name][0] += 1
+
+
+def count_of(name: str) -> int:
+  """Counter ``name``'s count since the process started (0 before its
+  first): the per-name reader that the kernel-launch checks of the tests
+  and ``chip_smoke.py`` take differences of, without copying every
+  counter as :func:`counters` does."""
+  return _totals[name][0] if name in _totals else 0
 
 
 def counters() -> dict:

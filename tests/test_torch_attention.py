@@ -1,11 +1,17 @@
 """The port's attention: plain version against the JAX package, the
-wrapper's contract, and (on a CUDA card only) the Hopper kernel.
+wrapper's contract, and (on a CUDA card only) the Hopper kernels: their
+build (no register spill, tensor-core instructions), and forward and
+backward against the plain versions at the main path's and every shipped
+config's shapes, N_q != N_kv included.
 
 Tolerance for fp32 agreement: 2e-5 absolute and relative, the JAX package's
 own flash-vs-dense bound (tests/test_attention.py), for sums of C products
 taken in different orders.
 """
 import importlib
+import os
+import re
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,16 +20,24 @@ import torch
 
 from score_sde_pytorch_tpu_torch.ops import attention
 from score_sde_pytorch_tpu_torch.ops import build
+from score_sde_pytorch_tpu_torch.utils import tracing
 
 jax_attention = importlib.import_module("score_sde_pytorch_tpu.ops.attention")
 
 TOL = 2e-5
 
 
-def qkv(b, n, c, seed=0, scale=2.0):
+def qkv(b, n, c, seed=0, scale=2.0, n_kv=None):
+  """q [B, N, C] and k, v [B, n_kv or N, C], normal draws times ``scale``."""
   rng = np.random.default_rng(seed)
-  return tuple((rng.normal(size=(b, n, c)) * scale).astype(np.float32)
-               for _ in range(3))
+  return tuple((rng.normal(size=(b, m, c)) * scale).astype(np.float32)
+               for m in (n, n_kv or n, n_kv or n))
+
+
+def launches():
+  """The attention kernels' counts: forward launches, backward calls."""
+  return (tracing.count_of("kernel.attention.fwd"),
+          tracing.count_of("kernel.attention.bwd"))
 
 
 @pytest.mark.parametrize("b,n,c", [(2, 16, 32), (2, 64, 16), (2, 256, 32),
@@ -40,11 +54,11 @@ def test_dense_matches_jax_flash_and_dense(b, n, c):
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
   q, k, v = map(torch.from_numpy, qkv(2, 64, 16))
-  before = attention.flash_attention_launches
+  before = launches()
   torch.testing.assert_close(attention.attention(q, k, v),
                              attention.dense_attention(q, k, v),
                              atol=0, rtol=0)
-  assert attention.flash_attention_launches == before
+  assert launches() == before
 
 
 def test_dense_bf16_casts_probabilities_to_v_dtype():
@@ -111,12 +125,10 @@ def test_dense_backward_matches_jax_flash_bwd_and_autograd(b, n, c):
 
 def test_wrapper_gradient_on_cpu_is_autograd_and_launches_nothing():
   q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkv(2, 16, 16))
-  before = (attention.flash_attention_launches,
-            attention.flash_attention_backward_launches)
+  before = launches()
   attention.attention(q, k, v).sum().backward()
   assert q.grad is not None and torch.isfinite(q.grad).all()
-  assert (attention.flash_attention_launches,
-          attention.flash_attention_backward_launches) == before
+  assert launches() == before
 
 
 def test_kernel_is_built_for_hopper_from_the_repo_source():
@@ -127,6 +139,8 @@ def test_kernel_is_built_for_hopper_from_the_repo_source():
   assert build.library_path("flash_attention").parent == build.BUILD_DIR
 
 
+
+
 @pytest.fixture
 def cuda_device():
   if not torch.cuda.is_available():
@@ -135,21 +149,72 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c", [(64, 256, 256), (64, 16, 256),
-                                   (2, 1024, 256), (3, 200, 64), (2, 64, 8),
-                                   (8, 256, 512), (8, 64, 512),
-                                   (4, 200, 512), (1, 1024, 384),
-                                   (2, 40, 264)])
-def test_kernel_matches_plain_version(cuda_device, b, n, c):
-  torch.backends.cuda.matmul.allow_tf32 = False
-  q, k, v = (torch.from_numpy(a).to(cuda_device)
-             for a in qkv(b, n, c, scale=1.0))
-  before = attention.flash_attention_launches
-  out = attention.attention(q, k, v)
-  torch.cuda.synchronize()
-  assert attention.flash_attention_launches == before + 1
-  torch.testing.assert_close(out, attention.dense_attention(q, k, v),
-                             atol=TOL, rtol=TOL)
+def test_the_kernels_spill_no_registers_and_run_on_tensor_cores(cuda_device,
+                                                                tmp_path):
+  """A fresh build of the source: ptxas reports no spill in any attention
+  kernel, and cuobjdump finds tensor-core (HMMA, ``mma.sync``)
+  instructions in the forward, dK/dV and dQ kernels."""
+  nvcc = build.find_nvcc()
+  lib = tmp_path / "libflash_attention.so"
+  proc = subprocess.run(
+      build.nvcc_command(nvcc, build.source_path("flash_attention"), lib),
+      capture_output=True, text=True, check=True)
+  kernel, spills = None, {}
+  for line in (proc.stdout + proc.stderr).splitlines():
+    if "Compiling entry function" in line:
+      kernel = line.split("'")[1]
+    found = re.search(r"(\d+) bytes spill stores", line)
+    if found and kernel and "flash_attention" in kernel:
+      spills[kernel] = int(found.group(1))
+  assert spills and not any(spills.values()), spills
+  sass = subprocess.run(
+      [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", str(lib)],
+      capture_output=True, text=True, check=True).stdout
+  hmma, name = {}, None
+  for line in sass.splitlines():
+    if "Function :" in line:
+      name = line.split(":", 1)[1].strip()
+      hmma[name] = 0
+    elif name is not None and re.search(r"\bHMMA\b", line):
+      hmma[name] += 1
+  for part in ("fwd", "bwd_dkdv", "bwd_dq"):
+    counts = [n for k, n in hmma.items() if f"flash_attention_{part}" in k]
+    assert counts and all(counts), (part, hmma)
+
+
+# (B, N_q, N_kv, C) of the main path and of every shipped config's
+# attention: sampling (64), training (128) and the eval batch (1024) at 16²
+# and the 4² bottleneck, ragged N, one long N; C = 512 (the 256² DDPM and
+# the 1024² NCSN++) and 384; the bf16 files' batches (church 32, 1024² 8);
+# and the space axis's slabs, N / 2 queries against the N keys of both
+# ranks (church 256² at global batch 4 and 8 and in bf16 at 32; 1024² at
+# 2 and in bf16 at 8).
+FWD_PATH_SHAPES = [
+    (64, 256, 256, 256), (128, 256, 256, 256), (1024, 256, 256, 256),
+    (64, 16, 16, 256), (2, 1024, 1024, 256), (4, 200, 200, 256),
+    (1, 4096, 4096, 256), (4, 128, 256, 256), (4, 8, 16, 256),
+    (8, 128, 256, 256), (64, 256, 256, 512), (8, 256, 256, 512),
+    (8, 64, 64, 512), (2, 256, 256, 512), (4, 200, 200, 512),
+    (1, 1024, 1024, 384), (2, 128, 256, 512), (2, 32, 64, 512),
+    (32, 256, 256, 256), (32, 16, 16, 256), (32, 128, 256, 256),
+    (32, 8, 16, 256), (8, 128, 256, 512)]
+# The train path's (and the bits/dim drift's) shapes: training at 128,
+# ragged N, N = 1024 at C = 128 and 256, C = 384 and 512, the bf16 files'
+# and the space axis's.
+BWD_PATH_SHAPES = [
+    (128, 256, 256, 256), (128, 16, 16, 256), (2, 1024, 1024, 256),
+    (1, 1024, 1024, 128), (4, 200, 200, 256), (4, 128, 256, 256),
+    (4, 8, 16, 256), (8, 128, 256, 256), (64, 256, 256, 512),
+    (8, 256, 256, 512), (8, 64, 64, 512), (2, 256, 256, 512),
+    (4, 200, 200, 512), (1, 1024, 1024, 384), (2, 128, 256, 512),
+    (2, 32, 64, 512), (32, 256, 256, 256), (32, 16, 16, 256),
+    (32, 128, 256, 256), (32, 8, 16, 256), (8, 128, 256, 512)]
+
+
+def _with(cases, shapes, *extra):
+  """``cases`` and then every shape of ``shapes`` not among them, each
+  with ``extra`` appended."""
+  return cases + [s + extra for s in shapes if s + extra not in cases]
 
 
 def _err(a, b):
@@ -157,26 +222,53 @@ def _err(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 512])
-def test_kernel_bf16_no_worse_than_dense(cuda_device, c):
+@pytest.mark.parametrize("b,n_q,n_kv,c", _with(
+    [(64, 256, 256, 256), (64, 16, 16, 256), (2, 1024, 1024, 256),
+     (3, 200, 200, 64), (2, 64, 64, 8), (8, 256, 256, 512), (8, 64, 64, 512),
+     (4, 200, 200, 512), (1, 1024, 1024, 384), (2, 40, 40, 264)],
+    FWD_PATH_SHAPES))
+def test_kernel_matches_plain_version(cuda_device, b, n_q, n_kv, c):
+  """fp32 (TF32 off): the largest |kernel - plain| within 2e-5."""
   torch.backends.cuda.matmul.allow_tf32 = False
-  q, k, v = (torch.from_numpy(a).to(cuda_device) for a in qkv(8, 256, c))
-  exact = attention.dense_attention(q.double(), k.double(), v.double())
-  qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-  err_kernel = _err(attention.attention(qb, kb, vb), exact)
-  err_dense = _err(attention.dense_attention(qb, kb, vb), exact)
-  assert err_kernel <= err_dense * 1.5 + 1e-3, (err_kernel, err_dense)
+  q, k, v = (torch.from_numpy(a).to(cuda_device)
+             for a in qkv(b, n_q, c, scale=1.0, n_kv=n_kv))
+  before = launches()
+  out = attention.attention(q, k, v)
+  torch.cuda.synchronize()
+  assert launches() == (before[0] + 1, before[1])
+  assert _err(out, attention.dense_attention(q, k, v).double()) <= TOL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(16, 256), (256, 256), (256, 512)])
-def test_kernel_stable_at_large_logits(cuda_device, n, c):
+@pytest.mark.parametrize("b,n_q,n_kv,c,scale", _with(
+    [(8, 256, 256, 256, 2.0), (8, 256, 256, 512, 2.0)], FWD_PATH_SHAPES,
+    1.0))
+def test_kernel_bf16_no_worse_than_dense(cuda_device, b, n_q, n_kv, c,
+                                         scale):
+  torch.backends.cuda.matmul.allow_tf32 = False
+  q, k, v = (torch.from_numpy(a).to(cuda_device)
+             for a in qkv(b, n_q, c, scale=scale, n_kv=n_kv))
+  qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+  out, dense = attention.attention(qb, kb, vb), attention.dense_attention(
+      qb, kb, vb)
+  # Against the fp64 result of the fp32 inputs and of their bf16 roundings.
+  for inputs in ((q, k, v), (qb, kb, vb)):
+    exact = attention.dense_attention(*(t.double() for t in inputs))
+    err_kernel, err_dense = _err(out, exact), _err(dense, exact)
+    assert err_kernel <= err_dense * 1.5 + 1e-3, (err_kernel, err_dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_q,n_kv,c", _with(
+    [(16, 16, 16, 256), (16, 256, 256, 256), (16, 256, 256, 512)],
+    FWD_PATH_SHAPES))
+def test_kernel_stable_at_large_logits(cuda_device, b, n_q, n_kv, c):
   """Logits x30: finite, and no further from the fp64 result than the
   plain fp32 path (x1.5 + 2e-5); at this scale the plain path is itself
   ~1e-4 from the fp64 result, so the bound is against fp64."""
   torch.backends.cuda.matmul.allow_tf32 = False
   q, k, v = (torch.from_numpy(a).to(cuda_device)
-             for a in qkv(16, n, c, scale=1.0))
+             for a in qkv(b, n_q, c, scale=1.0, n_kv=n_kv))
   q = q * 30
   exact = attention.dense_attention(q.double(), k.double(), v.double())
   out = attention.attention(q, k, v)
@@ -188,6 +280,14 @@ def test_kernel_stable_at_large_logits(cuda_device, n, c):
 BWD_TOL = 5e-4  # the JAX package's gradient bound (tests/test_attention.py)
 
 
+def _randn(device, b, n_q, n_kv, c, seed):
+  """Standard-normal q, k, v, dO ([B, N_q, C], [B, N_kv, C] twice, then
+  [B, N_q, C]) on ``device``."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  return [torch.randn(b, n, c, device=device, generator=gen)
+          for n in (n_q, n_kv, n_kv, n_q)]
+
+
 def _grads_through_kernel(q, k, v, dout):
   leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
   attention.attention(*leaves).backward(dout)
@@ -195,37 +295,38 @@ def _grads_through_kernel(q, k, v, dout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c", [(128, 256, 256), (128, 16, 256),
-                                   (2, 1024, 256), (1, 1024, 128),
-                                   (4, 200, 256), (3, 40, 8),
-                                   (8, 256, 512), (8, 64, 512),
-                                   (4, 200, 512), (1, 1024, 384),
-                                   (3, 40, 504)])
-def test_kernel_backward_matches_plain_version(cuda_device, b, n, c):
+@pytest.mark.parametrize("b,n_q,n_kv,c", _with(
+    [(128, 256, 256, 256), (128, 16, 16, 256), (2, 1024, 1024, 256),
+     (1, 1024, 1024, 128), (4, 200, 200, 256), (3, 40, 40, 8),
+     (8, 256, 256, 512), (8, 64, 64, 512), (4, 200, 200, 512),
+     (1, 1024, 1024, 384), (3, 40, 40, 504)], BWD_PATH_SHAPES))
+def test_kernel_backward_matches_plain_version(cuda_device, b, n_q, n_kv, c):
+  """fp32 (TF32 off): dq, dk, dv within 5e-4 (absolute and relative) of
+  the plain backward and of autograd through the plain forward."""
   torch.backends.cuda.matmul.allow_tf32 = False
-  gen = torch.Generator(device=cuda_device).manual_seed(b + n + c)
-  q, k, v, dout = (torch.randn(b, n, c, device=cuda_device, generator=gen)
-                   for _ in range(4))
-  before = attention.flash_attention_backward_launches
+  q, k, v, dout = _randn(cuda_device, b, n_q, n_kv, c, seed=b + n_q + c)
+  before = launches()
   got = _grads_through_kernel(q, k, v, dout)
   torch.cuda.synchronize()
-  assert attention.flash_attention_backward_launches == before + 1
+  assert launches() == (before[0] + 1, before[1] + 1)
   want = attention.dense_attention_backward(
       q, k, v, attention.dense_attention(q, k, v), dout)
-  for g, w in zip(got, want):
+  leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+  attention.dense_attention(*leaves).backward(dout)
+  for g, w, auto in zip(got, want, leaves):
     torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+    torch.testing.assert_close(g, auto.grad, atol=BWD_TOL, rtol=BWD_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 512])
-def test_kernel_backward_bf16_and_large_logits(cuda_device, c):
+@pytest.mark.parametrize("b,n_q,n_kv,c", _with(
+    [(8, 256, 256, 256), (8, 256, 256, 512)], BWD_PATH_SHAPES))
+def test_kernel_backward_bf16_and_large_logits(cuda_device, b, n_q, n_kv, c):
   """bf16: no further from the fp64 gradients than the plain bf16 path
   (x1.5 + 1e-3); logits x30: finite, and no further from fp64 than the
   plain fp32 path (x1.5 + 5e-4)."""
   torch.backends.cuda.matmul.allow_tf32 = False
-  gen = torch.Generator(device=cuda_device).manual_seed(3)
-  q, k, v, dout = (torch.randn(8, 256, c, device=cuda_device, generator=gen)
-                   for _ in range(4))
+  q, k, v, dout = _randn(cuda_device, b, n_q, n_kv, c, seed=3)
   for scale, dtype, slack in ((1.0, torch.bfloat16, 1e-3),
                               (30.0, torch.float32, BWD_TOL)):
     args = [(q * scale).to(dtype), k.to(dtype), v.to(dtype), dout.to(dtype)]
@@ -242,13 +343,13 @@ def test_kernel_backward_bf16_and_large_logits(cuda_device, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 512])
-def test_kernel_backward_is_bitwise_deterministic(cuda_device, c):
+@pytest.mark.parametrize("b,n_q,n_kv,c", _with(
+    [(16, 256, 256, 256), (16, 256, 256, 512)], BWD_PATH_SHAPES))
+def test_kernel_backward_is_bitwise_deterministic(cuda_device, b, n_q, n_kv,
+                                                  c):
   """The backward has one writer per output row and sums in a fixed order
   (dS goes through a scratch, not atomics): two runs give the same bits."""
-  gen = torch.Generator(device=cuda_device).manual_seed(7)
-  q, k, v, dout = (torch.randn(16, 256, c, device=cuda_device,
-                               generator=gen) for _ in range(4))
+  q, k, v, dout = _randn(cuda_device, b, n_q, n_kv, c, seed=7)
   first = _grads_through_kernel(q, k, v, dout)
   second = _grads_through_kernel(q, k, v, dout)
   for a, b in zip(first, second):

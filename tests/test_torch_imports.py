@@ -37,6 +37,7 @@ MAIN_PATH_MODULES = [
     "score_sde_pytorch_tpu_torch.ops.group_norm",
     "score_sde_pytorch_tpu_torch.ops.build",
     "score_sde_pytorch_tpu_torch.ops.upfirdn2d",
+    "score_sde_pytorch_tpu_torch.ops.bench_kernels",
     "score_sde_pytorch_tpu_torch.models",
     "score_sde_pytorch_tpu_torch.models.layers",
     "score_sde_pytorch_tpu_torch.models.layerspp",

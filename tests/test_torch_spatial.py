@@ -44,6 +44,7 @@ from score_sde_pytorch_tpu_torch import configs, parallel
 from score_sde_pytorch_tpu_torch.models import utils as mutils
 from score_sde_pytorch_tpu_torch.ops import attention
 from score_sde_pytorch_tpu_torch.parallel import spatial
+from score_sde_pytorch_tpu_torch.utils import tracing
 from tests.test_torch_ncsnpp import init_params, nchw
 from tests.test_torch_training import grads_by_name, jax_t_z, port_model
 from tests.torch_dist_workers import (SLAB_OPS, run_ranks, run_slab_op,
@@ -393,14 +394,13 @@ def test_kernels_of_two_lengths_match_the_plain_versions(cuda_device, b, n_q,
   k, v = (torch.randn(b, n_kv, c, device=cuda_device, generator=gen)
           .to(dtype) for _ in range(2))
   leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-  before = (attention.flash_attention_launches,
-            attention.flash_attention_backward_launches)
+  names = ("kernel.attention.fwd", "kernel.attention.bwd")
+  before = [tracing.count_of(n) for n in names]
   out = attention.attention(*leaves)
   out.backward(dout)
   torch.cuda.synchronize()
-  assert (attention.flash_attention_launches,
-          attention.flash_attention_backward_launches) == (before[0] + 1,
-                                                           before[1] + 1)
+  assert [tracing.count_of(n) for n in names] == [before[0] + 1,
+                                                  before[1] + 1]
   plain = attention.dense_attention(q, k, v)
   grads = attention.dense_attention_backward(q, k, v, plain, dout)
   if dtype == torch.float32:
